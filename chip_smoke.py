@@ -8,18 +8,27 @@ Phases (any failure exits non-zero and prints no result):
 
 1. The card: ``nvidia-smi`` name and power limit, torch and CUDA versions.
 2. Build the CUDA kernels from ``pointcloud_rl_torch/csrc`` with nvcc.
+   ``cuobjdump -sass`` of the built library: the count of ``HGMMA`` (and
+   ``HMMA``) instructions in each kernel; the body kernels of both entry
+   points must hold ``HGMMA`` (the tensor cores' warpgroup products).
 3. Each kernel against its plain PyTorch version on the same inputs, at the
-   training slice's encoder shape (f32) and at the walker encoder's shape
-   (f32 and bf16): pooled values, winner indices (the kernel's winner must
-   attain the plain max), gradients of ``FusedPointNetBody`` against
-   autograd through the plain body, and ms per call of both.
+   training slice's encoder shape (f32), the act encode's (4 env workers,
+   f32) and the walker encoder's (f32 and bf16), then at edge shapes (one
+   batch row, one point, ragged tails, widths that are no multiple of 16):
+   pooled values, winner indices (the kernel's winner must attain the plain
+   max), bitwise-equal repeated calls, a cloud of three copies of the same
+   points in different chunks (the winners must equal the plain first-index
+   argmax exactly), gradients of ``FusedPointNetBody`` against autograd
+   through the plain body, and ms per call of kernel and plain version
+   beside the least time the card could take (``bound_ms``).
 4. The slice through the CLI a user runs, in subprocesses: SAC + PointNet on
    ``configs/mfrl/sac/synthetic/pn_fake_manipulation.py`` at its full
    widths trains a few thousand env steps on the card, then evaluates from
    ``model_final`` and resumes with ``--auto-resume``.  Each run starts a
    fresh process and resets its kernel launch counts to 0 just before it
    trains or evaluates; it writes them to ``run_summary.json``, and both
-   kernels must have launched.
+   kernels must have launched.  Each run also lists there the
+   ``pointcloud_rl_tpu`` modules it loaded, which must be none.
 5. The trained checkpoint acts on a few environment observations on the
    card (fused kernel) and on the CPU (plain body): the eval-mode actions
    must agree.
@@ -51,12 +60,31 @@ TPU_KERNELS = {
     "pointnet_fused_fwd_idx": "pointcloud_rl_tpu/ops/pointnet_fused.py:113",
     "pointnet_fused_fwd_max": "pointcloud_rl_tpu/ops/pointnet_fused.py:138",
 }
-# (name, B, N, C_in, widths, compute dtype name)
+# (name, B, N, C_in, widths, compute dtype name): the main path's shapes,
+# timed (the update's encodes at B=256, the act encode at 4 env workers,
+# the walker encoder), then edge shapes, checked only.
 SHAPES = [
     ("slice_f32", 256, 1200, 8, (128, 128, 256), "float32"),
+    ("act_f32", 4, 1200, 8, (128, 128, 256), "float32"),
     ("walker_f32", 256, 1536, 9, (64, 128, 256), "float32"),
     ("walker_bf16", 256, 1536, 9, (64, 128, 256), "bfloat16"),
 ]
+EDGE_SHAPES = [
+    ("b1_n1", 1, 1, 8, (128, 128, 256), "float32"),
+    ("b1_n63", 1, 63, 9, (64, 128, 256), "float32"),
+    ("b2_n1201", 2, 1201, 8, (128, 128, 256), "float32"),
+    ("b1_n1201_bf16", 1, 1201, 9, (64, 128, 256), "bfloat16"),
+    ("odd_widths_f32", 3, 300, 8, (40, 72, 200), "float32"),
+    ("odd_widths_bf16", 3, 300, 8, (40, 72, 200), "bfloat16"),
+    ("narrow_f32", 2, 100, 8, (32, 64, 128), "float32"),  # f32 weights resident in shared memory
+]
+# Published dense peaks of one H100 SXM at 700 W (NVIDIA H100 datasheet).
+PEAK_TF32 = 495e12   # FLOP/s; f32 runs as 3xTF32, 3 products per FLOP
+PEAK_BF16 = 989e12   # FLOP/s
+PEAK_BYTES = 3.35e12  # bytes/s of HBM3
+BOUND_FORMULA = ("max(ops, bytes): ops = 3*FLOP/495e12 s (f32 as 3xTF32) or FLOP/989e12 s (bf16), "
+                 "FLOP = 2*B*N*(C_in*c1 + c1*c2 + c2*c3); bytes = x + W + biases/LN read once, "
+                 "pooled (+idx) written once, over 3.35e12 B/s")
 # Tolerances of kernel vs plain.  f32: the kernel sums each dot product in
 # another order than cuBLAS, and LayerNorm divides by a per-row std, so
 # values agree to a few f32 ulps times the depth; 1e-4 absolute on O(1)
@@ -133,44 +161,151 @@ def check_close(name, got, want, atol, rtol) -> float:
     return float(err.max())
 
 
+def bound_ms(B, N, c_in, widths, dname, with_idx: bool):
+    """The least time the card could take for one call: the larger of the
+    operations over the peak rate of their type and the bytes over HBM's
+    rate.  Returns (ms, "operations" or "bytes")."""
+    c1, c2, c3 = widths
+    flop = 2 * B * N * (c_in * c1 + c1 * c2 + c2 * c3)
+    esz = 4 if dname == "float32" else 2
+    nbytes = (B * N * c_in + c_in * c1 + c1 * c2 + c2 * c3) * esz + 4 * (c1 + 3 * c2 + 3 * c3)
+    nbytes += B * c3 * (8 if with_idx else 4)
+    ops_s = 3 * flop / PEAK_TF32 if dname == "float32" else flop / PEAK_BF16
+    mem_s = nbytes / PEAK_BYTES
+    return 1e3 * max(ops_s, mem_s), ("operations" if ops_s >= mem_s else "bytes")
+
+
+def sass_counts(lib_path: str) -> dict:
+    """{kernel name: (HGMMA count, HMMA count)} from ``cuobjdump -sass``."""
+    from pointcloud_rl_torch.ops import build as kbuild
+
+    cuobjdump = osp.join(osp.dirname(kbuild.find_nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+                         timeout=120, check=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            counts[fn] = [0, 0]
+        elif fn is not None:
+            counts[fn][0] += "HGMMA" in line
+            counts[fn][1] += " HMMA" in line
+    return {k: tuple(v) for k, v in counts.items()}
+
+
+def phase_sass(lib_path: str) -> dict:
+    counts = sass_counts(lib_path)
+    per_entry = {}
+    for entry, body in (("pointnet_fused_fwd_idx", "pointnet_body_idx_kernel"),
+                        ("pointnet_fused_fwd_max", "pointnet_body_max_kernel")):
+        kern = {k: v for k, v in counts.items() if body in k}
+        if len(kern) != 2:
+            fail(f"expected an f32 and a bf16 {body} in the library, found {sorted(kern)}")
+        for k, (hgmma, hmma) in sorted(kern.items()):
+            dt = "bf16" if "bfloat16" in k else "f32"
+            print(f"[sass] {entry} {body}<{dt}>: {hgmma} HGMMA, {hmma} HMMA", flush=True)
+            if hgmma == 0:
+                fail(f"{body}<{dt}> holds no HGMMA instruction: the tensor cores are unused")
+        per_entry[entry] = {("bf16" if "bfloat16" in k else "f32"): v[0] for k, v in kern.items()}
+    for k, (hgmma, hmma) in sorted(counts.items()):
+        if "pointnet_body" not in k:
+            print(f"[sass] {k}: {hgmma} HGMMA, {hmma} HMMA", flush=True)
+    return per_entry
+
+
+def check_shape(pf, name, B, N, c_in, widths, dname, seed=0):
+    """Both entry points against the plain version at one shape; returns
+    (inputs, compute dtype, errors, share of identical indices)."""
+    import torch
+
+    dtype = getattr(torch, dname)
+    cdt = None if dtype == torch.float32 else dtype
+    atol, rtol = POOLED_TOL[dname]
+    x, params = make_inputs(B, N, c_in, widths, seed=seed)
+    with torch.no_grad():
+        want_h3 = pf._body_rows(x.reshape(B * N, c_in), params, cdt).reshape(B, N, -1).float()
+        want = want_h3.max(dim=1).values
+        got_idx_pooled, got_idx = pf._forward_kernel(x, params, cdt, with_idx=True)
+        got_max, _ = pf._forward_kernel(x, params, cdt, with_idx=False)
+        again_pooled, again_idx = pf._forward_kernel(x, params, cdt, with_idx=True)
+        again_max, _ = pf._forward_kernel(x, params, cdt, with_idx=False)
+        torch.cuda.synchronize()
+        e_idx = check_close(f"{name} fwd_idx pooled", got_idx_pooled, want, atol, rtol)
+        e_max = check_close(f"{name} fwd_max pooled", got_max, want, atol, rtol)
+        if not torch.equal(got_idx_pooled, got_max):
+            fail(f"{name}: the two entry points disagree on pooled")
+        if not (torch.equal(again_pooled, got_idx_pooled) and torch.equal(again_idx, got_idx)
+                and torch.equal(again_max, got_max)):
+            fail(f"{name}: two calls on the same inputs are not bitwise equal")
+        if int(got_idx.min()) < 0 or int(got_idx.max()) >= N:
+            fail(f"{name}: winner index out of range")
+        # The kernel's winner must attain the plain max (robust to near-ties).
+        at_winner = torch.gather(want_h3, 1, got_idx.long()[:, None, :])[:, 0, :]
+        e_arg = check_close(f"{name} argmax", at_winner, want, atol, rtol)
+        same = float((got_idx == pf._tile_max_argmax(want_h3)[1]).float().mean())
+    del want_h3
+    return (x, params), cdt, (e_idx, e_max, e_arg), same
+
+
+def check_copies(pf, dname: str) -> None:
+    """Three copies of the same 400 points at the act shape, each copy in
+    other chunks than the rest: the winners must equal the plain first-index
+    argmax exactly, and all be first copies."""
+    import torch
+
+    dtype = getattr(torch, dname)
+    cdt = None if dtype == torch.float32 else dtype
+    x, params = make_inputs(4, 400, 8, (128, 128, 256), seed=3)
+    x = torch.cat([x, x, x], dim=1).contiguous()
+    lib = pf.load_library()
+    tile = lib.pointnet_fused_tile_rows(int(cdt is not None), 8, 128, 128, 256)
+    chunks = pf.choose_chunks(4, 1200, tile, torch.cuda.get_device_properties(0).multi_processor_count)
+    per_chunk = -(-(-(-1200 // tile)) // chunks) * tile
+    if per_chunk > 400:
+        fail(f"copies: {chunks} chunks of {per_chunk} points do not separate the copies")
+    with torch.no_grad():
+        _, idx = pf._forward_kernel(x, params, cdt, with_idx=True)
+        _, want = pf._forward_plain(x, params, cdt, with_idx=True)
+        torch.cuda.synchronize()
+    if int(idx.max()) >= 400 or not torch.equal(idx, want):
+        fail(f"copies ({dname}): winners differ from the plain first-index argmax on "
+             f"{int((idx != want).sum())} of {idx.numel()} channels")
+    print(f"[kernels] copies in different chunks ({dname}, {chunks} chunks of {per_chunk} points): "
+          f"winners equal the plain first-index argmax on all {idx.numel()} channels", flush=True)
+
+
 def phase_kernels(pf, report: dict, card: str) -> None:
     import torch
 
     for name, B, N, c_in, widths, dname in SHAPES:
-        dtype = getattr(torch, dname)
-        cdt = None if dtype == torch.float32 else dtype
-        atol, rtol = POOLED_TOL[dname]
-        x, params = make_inputs(B, N, c_in, widths)
+        (x, params), cdt, (e_idx, e_max, e_arg), same = check_shape(pf, name, B, N, c_in, widths, dname)
         with torch.no_grad():
-            want_h3 = pf._body_rows(x.reshape(B * N, c_in), params, cdt).reshape(B, N, -1).float()
-            want = want_h3.max(dim=1).values
-            got_idx_pooled, got_idx = pf._forward_kernel(x, params, cdt, with_idx=True)
-            got_max, _ = pf._forward_kernel(x, params, cdt, with_idx=False)
-            torch.cuda.synchronize()
-            e_idx = check_close(f"{name} fwd_idx pooled", got_idx_pooled, want, atol, rtol)
-            e_max = check_close(f"{name} fwd_max pooled", got_max, want, atol, rtol)
-            if not torch.equal(got_idx_pooled, got_max):
-                fail(f"{name}: the two entry points disagree on pooled")
-            if int(got_idx.min()) < 0 or int(got_idx.max()) >= N:
-                fail(f"{name}: winner index out of range")
-            # The kernel's winner must attain the plain max (robust to near-ties).
-            at_winner = torch.gather(want_h3, 1, got_idx.long()[:, None, :])[:, 0, :]
-            e_arg = check_close(f"{name} argmax", at_winner, want, atol, rtol)
-            same = float((got_idx == pf._tile_max_argmax(want_h3)[1]).float().mean())
             ms_idx = time_ms(lambda: pf._forward_kernel(x, params, cdt, with_idx=True))
             ms_max = time_ms(lambda: pf._forward_kernel(x, params, cdt, with_idx=False))
             plain_idx = time_ms(lambda: pf._forward_plain(x, params, cdt, with_idx=True))
             plain_max = time_ms(lambda: pf._forward_plain(x, params, cdt, with_idx=False))
+        b_idx = bound_ms(B, N, c_in, widths, dname, True)
+        b_max = bound_ms(B, N, c_in, widths, dname, False)
         print(f"[kernels] {name} B={B} N={N} C_in={c_in} widths={widths}: "
               f"max abs err fwd_idx {e_idx:.3e} fwd_max {e_max:.3e} argmax {e_arg:.3e}, "
-              f"idx identical to plain {same:.4%}; ms/call fwd_idx {ms_idx:.3f} "
-              f"(plain {plain_idx:.3f}) fwd_max {ms_max:.3f} (plain {plain_max:.3f}) on {card}", flush=True)
-        for kname, err, ms, pms in (("pointnet_fused_fwd_idx", max(e_idx, e_arg), ms_idx, plain_idx),
-                                    ("pointnet_fused_fwd_max", e_max, ms_max, plain_max)):
+              f"idx identical to plain {same:.4%}; ms/call fwd_idx {ms_idx:.4f} "
+              f"(plain {plain_idx:.3f}, bound {b_idx[0]:.4f}) fwd_max {ms_max:.4f} "
+              f"(plain {plain_max:.3f}, bound {b_max[0]:.4f}) on {card}", flush=True)
+        for kname, err, ms, pms, bnd in (
+                ("pointnet_fused_fwd_idx", max(e_idx, e_arg), ms_idx, plain_idx, b_idx),
+                ("pointnet_fused_fwd_max", e_max, ms_max, plain_max, b_max)):
             rec = report.setdefault(kname, {"max_abs_err": 0.0, "shapes": {}})
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            rec["shapes"][name] = {"ms": ms, "plain_ms": pms}
-        del want_h3
+            rec["shapes"][name] = {"ms": ms, "plain_ms": pms, "bound_ms": bnd[0], "bound_by": bnd[1]}
+        del x, params
+
+    for name, B, N, c_in, widths, dname in EDGE_SHAPES:
+        _, _, errs, same = check_shape(pf, name, B, N, c_in, widths, dname, seed=4)
+        print(f"[kernels] edge {name} B={B} N={N} C_in={c_in} widths={widths} {dname}: "
+              f"max abs err {max(errs):.3e}, idx identical to plain {same:.4%}, repeat bitwise equal",
+              flush=True)
+    for dname in ("float32", "bfloat16"):
+        check_copies(pf, dname)
 
     # Gradients of the fused body at the slice's shape vs autograd through
     # the plain body (f32; the slice trains in f32).
@@ -214,6 +349,16 @@ def run_cli(args, log_path: str, timeout: int) -> None:
     print(f"[slice]   done in {time.monotonic() - t0:.1f} s", flush=True)
 
 
+def read_summary(wd: str) -> dict:
+    """The run's ``run_summary.json``; the run must have loaded nothing of
+    the JAX package."""
+    with open(osp.join(wd, "run_summary.json")) as f:
+        summary = json.load(f)
+    if summary.get("pointcloud_rl_tpu_modules") != []:
+        fail(f"the run loaded modules of the JAX package: {summary.get('pointcloud_rl_tpu_modules')}")
+    return summary
+
+
 def read_metrics(path: str):
     with open(path) as f:
         rows = list(csv.DictReader(f))
@@ -235,8 +380,7 @@ def phase_slice(work: str) -> dict:
             "train_cfg.n_checkpoint=1500", "eval_cfg.save_video=False", "eval_cfg.num=2"]
     run_cli(common + ["--cfg-options", *opts, "train_cfg.total_steps=3000"],
             osp.join(work, "train.log"), timeout=420)
-    with open(osp.join(wd, "run_summary.json")) as f:
-        summary = json.load(f)
+    summary = read_summary(wd)
     if not summary["device"].startswith("cuda"):
         fail(f"the slice ran on {summary['device']}")
     for kname, n in summary["launches"].items():
@@ -253,8 +397,7 @@ def phase_slice(work: str) -> dict:
 
     run_cli(common + ["--evaluation", "--resume-from", osp.join(wd, "models", "model_final"),
                       "--cfg-options", *opts], osp.join(work, "eval.log"), timeout=180)
-    with open(osp.join(wd, "run_summary.json")) as f:
-        ev = json.load(f)
+    ev = read_summary(wd)
     if not ev["eval"] or not all(math.isfinite(v) for v in ev["eval"].values()):
         fail(f"evaluation returned {ev['eval']}")
     if ev["launches"]["pointnet_fused_fwd_max"] <= 0:
@@ -263,8 +406,7 @@ def phase_slice(work: str) -> dict:
 
     run_cli(common + ["--auto-resume", "--cfg-options", *opts, "train_cfg.total_steps=3200"],
             osp.join(work, "resume.log"), timeout=180)
-    with open(osp.join(wd, "run_summary.json")) as f:
-        rs = json.load(f)
+    rs = read_summary(wd)
     if rs["resume_steps"] != 3000 or rs["steps"] != 3200:
         fail(f"auto-resume went from {rs['resume_steps']} to {rs['steps']}, expected 3000 -> 3200")
     print(f"[slice] auto-resume: model_3000 -> {rs['steps']} env steps", flush=True)
@@ -330,9 +472,10 @@ def main() -> int:
     from pointcloud_rl_torch.ops import pointnet_fused as pf
 
     t0 = time.monotonic()
-    kbuild.build_library("pointnet_fused", verbose=True)
+    lib_path = kbuild.build_library("pointnet_fused", verbose=True)
     pf.load_library()
     print(f"[build] {KERNEL_SOURCE} built and loaded in {time.monotonic() - t0:.1f} s", flush=True)
+    hgmma = phase_sass(str(lib_path))
 
     report: dict = {}
     phase_kernels(pf, report, f"{kind} ({smi})")
@@ -355,11 +498,20 @@ def main() -> int:
 
     kernels = []
     for kname, rec in report.items():
-        slice_t = rec["shapes"]["slice_f32"]
+        shp = rec["shapes"]
+        slice_t = shp["slice_f32"]
         kernels.append({
             "name": kname, "route": "cuda", "source": KERNEL_SOURCE, "replaces": TPU_KERNELS[kname],
             "launches": launches[kname], "max_abs_err": rec["max_abs_err"],
             "ms": slice_t["ms"], "plain_ms": slice_t["plain_ms"],
+            "bound_ms": slice_t["bound_ms"], "bound_by": slice_t["bound_by"],
+            "bound_formula": BOUND_FORMULA, "share_of_bound": slice_t["bound_ms"] / slice_t["ms"],
+            "library_ms": None,  # no single PyTorch call computes body + LayerNorm + max-pool
+            "act_ms": shp["act_f32"]["ms"], "act_bound_ms": shp["act_f32"]["bound_ms"],
+            "walker_f32_ms": shp["walker_f32"]["ms"],
+            "walker_bf16_ms": shp["walker_bf16"]["ms"],
+            "walker_bf16_bound_ms": shp["walker_bf16"]["bound_ms"],
+            "hgmma": hgmma[kname],
         })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,6 @@
 """Model-free RL algorithms (the MFRL registry)."""
 
-from pointcloud_rl_tpu.registry import Registry, build_from_cfg
+from ..registry import Registry, build_from_cfg
 
 MFRL = Registry("mfrl")
 

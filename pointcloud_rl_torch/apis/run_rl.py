@@ -12,7 +12,9 @@ moves to the CPU on its own.  The rollout and the evaluator (whose env
 workers start through ``forkserver``) are built before the agent, i.e.
 before CUDA is initialised.  Each run writes ``run_summary.json`` into the
 work dir: the device, step counts, throughput over the main loop, the
-fused-PointNet kernel launches of the process, and evaluation results.
+fused-PointNet kernel launches of the process, evaluation results, and the
+``pointcloud_rl_tpu`` modules loaded in the process (none: the port stands
+alone).
 """
 
 from __future__ import annotations
@@ -21,17 +23,17 @@ import argparse
 import json
 import os
 import os.path as osp
+import sys
 import time
 from copy import deepcopy
 from typing import Optional
 
 import numpy as np
 
-from pointcloud_rl_tpu.config import Config, DictAction
-from pointcloud_rl_tpu.utils.logger import get_logger
-from pointcloud_rl_tpu.utils.seeding import add_env_vars, set_host_seed
-
+from ..config import Config, DictAction
 from ..utils.checkpoint import find_checkpoint, load_checkpoint
+from ..utils.logger import get_logger
+from ..utils.seeding import add_env_vars, set_host_seed
 from .train_rl import train_rl
 
 _TRAIN_KEYS = ("total_steps", "warm_steps", "n_steps", "n_updates", "n_log", "n_eval",
@@ -112,7 +114,7 @@ def main(args=None) -> None:
     logger.info(f"Work dir: {work_dir}; seed: {seed}; device: {args.device}")
     cfg.dump(osp.join(work_dir, time.strftime("%Y%m%d_%H%M%S") + "-config.py"))
     if args.reproducible:
-        from pointcloud_rl_tpu.utils.collect_env import check_reproducibility
+        from ..utils.collect_env import check_reproducibility
 
         check_reproducibility(strict=True)
 
@@ -135,9 +137,8 @@ def _check_device(name: str):
 
 
 def run(cfg: Config, work_dir: str, seed: int, args) -> dict:
-    from pointcloud_rl_tpu.loggers import build_exp_logger
-
     from ..env import build_evaluation, build_replay, build_rollout, get_env_info
+    from ..loggers import build_exp_logger
 
     logger = get_logger("pcrl")
     env_cfg = cfg["env_cfg"].to_dict() if hasattr(cfg["env_cfg"], "to_dict") else dict(cfg["env_cfg"])
@@ -224,6 +225,8 @@ def run(cfg: Config, work_dir: str, seed: int, args) -> dict:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         summary["launches"] = dict(pointnet_fused.launch_counts)
+        summary["pointcloud_rl_tpu_modules"] = sorted(
+            m for m in sys.modules if m.split(".")[0] == "pointcloud_rl_tpu")
         logger.info(f"Fused PointNet kernel launches: {summary['launches']}")
         with open(osp.join(work_dir, "run_summary.json"), "w") as f:
             json.dump(summary, f, indent=1)

@@ -18,13 +18,12 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-from pointcloud_rl_tpu.utils.logger import get_logger
-from pointcloud_rl_tpu.utils.process import get_total_memory_mb
-from pointcloud_rl_tpu.utils.stats import EpisodicStatistics, EveryNSteps
-from pointcloud_rl_tpu.utils.timer import format_eta
-from pointcloud_rl_tpu.utils.tree_ops import dict_to_str
-
 from ..utils.checkpoint import save_checkpoint
+from ..utils.logger import get_logger
+from ..utils.process import get_total_memory_mb
+from ..utils.stats import EpisodicStatistics, EveryNSteps
+from ..utils.timer import format_eta
+from ..utils.tree_ops import dict_to_str
 
 
 def train_rl(

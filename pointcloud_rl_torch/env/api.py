@@ -20,7 +20,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
-from pointcloud_rl_tpu.utils.tree_ops import f64_to_f32, tree_assign, tree_empty_like_with_capacity, tree_map
+from ..utils.tree_ops import f64_to_f32, tree_assign, tree_empty_like_with_capacity, tree_map
 from .spaces import Box, Discrete, Space
 
 

@@ -15,8 +15,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from pointcloud_rl_tpu.registry import Registry, build_from_cfg
-from pointcloud_rl_tpu.utils.tree_ops import tree_shape
+from ..registry import Registry, build_from_cfg
+from ..utils.tree_ops import tree_shape
 from .api import Env, ExtendedEnv, FrameStackWrapper, TimeLimit
 from .spaces import Box, Discrete
 from .vec_env import UnifiedVectorEnvAPI, build_vec_env_from_cfgs

@@ -17,7 +17,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from pointcloud_rl_tpu.utils.logger import get_logger
+from ..utils.logger import get_logger
 from .builder import EVALUATIONS, build_vec_env
 
 
@@ -138,7 +138,7 @@ class Evaluation:
             (reference evaluation.py:173-181,224-226)."""
             if traj_file is None or not traj_buffers[slot]:
                 return
-            from pointcloud_rl_tpu.utils.tree_ops import tree_map as _tm
+            from ..utils.tree_ops import tree_map as _tm
 
             steps = traj_buffers[slot]
             stacked = _tm(lambda *xs: np.stack(xs), *steps)
@@ -197,7 +197,7 @@ class Evaluation:
                 lens[ep] += 1
                 rewards[ep] += float(trans["rewards"][slot, 0])
                 if traj_buffers is not None:
-                    from pointcloud_rl_tpu.utils.tree_ops import tree_slice as _ts
+                    from ..utils.tree_ops import tree_slice as _ts
 
                     item = dict(
                         obs=_ts(trans["obs"], slot),

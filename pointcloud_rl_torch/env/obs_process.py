@@ -66,7 +66,7 @@ def pcd_base(
     """
     rng = np_random or np.random
     if use_native is None or use_native:
-        from pointcloud_rl_tpu.native import available, seg_balanced_sample_indices
+        from ..native import available, seg_balanced_sample_indices
 
         if available() and "seg" in obs and (use_native or use_native is None):
             seed = int(rng.randint(2**31)) if hasattr(rng, "randint") else 0

@@ -17,7 +17,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from pointcloud_rl_tpu.utils.tree_ops import (
+from ..utils.tree_ops import (
     first_leaf,
     tree_assign,
     tree_concat,
@@ -112,19 +112,12 @@ class ReplayMemory:
         # valid while none of it has been overwritten by the ring.
         self._episode_spans: List[tuple] = []  # (global_start, length)
         self._open_episodes: Dict[int, tuple] = {}  # worker -> (global_start, length)
-        self.data_coder = None
         if data_coder_cfg is not None:
-            from pointcloud_rl_tpu.utils.io import DataCoder
-
-            self.data_coder = DataCoder(**data_coder_cfg)
-        # HDF5-dataset backing (reference replay_buffer.py:100-172): when the
-        # dataset exceeds capacity, chunks stream in via a background
-        # prefetcher and sample() swaps to the next chunk after one pass
-        # over the current one (dynamic loading); otherwise everything
-        # full-loads once.
-        self.dynamic_loading = False
-        self._chunk_loader = None
-        self._chunk_sampled = 0
+            raise NotImplementedError("replay data_coder_cfg (utils.io.DataCoder) is not ported to "
+                                      "pointcloud_rl_torch yet (ROADMAP A1)")
+        # HDF5-dataset backing (reference replay_buffer.py:100-172): a
+        # dataset that fits in capacity full-loads once; streaming a larger
+        # one in chunks (dynamic loading) is not ported.
         if buffer_filenames:
             self._init_file_backing(list(buffer_filenames), dynamic_loading,
                                     cache_files_ahead, num_samples)
@@ -307,7 +300,7 @@ class ReplayMemory:
     def _load_unit(self, unit) -> Dict[str, Any]:
         import h5py
 
-        from pointcloud_rl_tpu.utils.tree_ops import tree_concat
+        from ..utils.tree_ops import tree_concat
 
         parts = []
         for fn, tk, start, stop in unit:
@@ -319,39 +312,20 @@ class ReplayMemory:
                             for k, v in g.items()}
 
                 parts.append(_load(grp))
-        data = tree_concat(parts, 0) if len(parts) > 1 else parts[0]
-        if self.data_coder is not None:
-            data = self.data_coder.decode(data)
-        return data
+        return tree_concat(parts, 0) if len(parts) > 1 else parts[0]
 
     def _init_file_backing(self, filenames, dynamic_loading, ahead, num_samples):
         units, total = self._hdf5_units(filenames, self.capacity, num_samples)
         if dynamic_loading is None:
             dynamic_loading = total > self.capacity
-        self.dynamic_loading = bool(dynamic_loading)
-        if not self.dynamic_loading:
-            for unit in units:
-                self.push_batch(self._load_unit(unit))
-            return
-        # chunks stream through a background prefetcher; one pass over each
-        # chunk, then swap (reference replay_buffer.py:134-138, 297-314)
-        from pointcloud_rl_tpu.utils.io import FileCache
-
-        self._chunk_loader = FileCache(units, loader=self._load_unit, ahead=ahead, loop=True)
-        self._swap_chunk()
-
-    def _swap_chunk(self) -> None:
-        _, data = self._chunk_loader.get()
-        assert data is not None, "dataset prefetcher closed unexpectedly"
-        self.reset()
-        self.push_batch(data)
-        self._chunk_sampled = 0
+        if dynamic_loading:
+            raise NotImplementedError("dynamic loading of an HDF5 replay dataset (utils.io.FileCache) "
+                                      "is not ported to pointcloud_rl_torch yet (ROADMAP A1)")
+        for unit in units:
+            self.push_batch(self._load_unit(unit))
 
     # --------------------------------------------------------------- sample
     def sample(self, batch_size: int) -> Dict[str, Any]:
-        if self.dynamic_loading and self._chunk_sampled + batch_size > len(self):
-            self._swap_chunk()
-        self._chunk_sampled += batch_size
         idx = self.sampling.sample(batch_size, len(self), self.capacity)
         return tree_take(self.memory, idx)
 
@@ -411,8 +385,3 @@ class ReplayMemory:
 
             data = _load(f)
         self.push_batch(data)
-
-    def close(self) -> None:
-        if self._chunk_loader is not None:
-            self._chunk_loader.close()
-            self._chunk_loader = None

@@ -16,9 +16,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-from pointcloud_rl_tpu.utils.logger import get_logger
-from pointcloud_rl_tpu.utils.stats import EpisodicStatistics
-from pointcloud_rl_tpu.utils.timer import Timer
+from ..utils.logger import get_logger
+from ..utils.stats import EpisodicStatistics
+from ..utils.timer import Timer
 from .builder import ROLLOUTS, build_vec_env
 
 
@@ -179,7 +179,7 @@ class Rollout:
 
         import numpy as np  # noqa: F811 (local for speed in the loop)
 
-        from pointcloud_rl_tpu.utils.tree_ops import tree_map
+        from ..utils.tree_ops import tree_map
 
         steps_per_env = num // self.num_envs
         groups = np.array_split(np.arange(self.num_envs), self.pipeline_groups)
@@ -201,7 +201,7 @@ class Rollout:
 
         def _flush(t0):
             nonlocal t_copy
-            from pointcloud_rl_tpu.utils.tree_ops import tree_concat
+            from ..utils.tree_ops import tree_concat
 
             batch = collected[0] if len(collected) == 1 else tree_concat(collected, 0)
             collected.clear()

@@ -21,7 +21,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from pointcloud_rl_tpu.utils.tree_ops import tree_concat, tree_expand, tree_map, tree_slice, tree_stack
+from ..utils.tree_ops import tree_concat, tree_expand, tree_map, tree_slice, tree_stack
 from .api import Env, true_done
 from .spaces import stack_action_space
 
@@ -49,7 +49,7 @@ def _worker_loop(env_fn_cfg, worker_seed, conn):
     # Env workers must not oversubscribe BLAS threads.
     for var in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
         os.environ[var] = "1"
-    from pointcloud_rl_tpu.utils.shmem import SharedTreeBuffer
+    from ..utils.shmem import SharedTreeBuffer
     from .builder import build_env
 
     env = build_env(env_fn_cfg)
@@ -142,16 +142,24 @@ class EnvWorker:
         self.send(cmd, payload)
         return self.recv()
 
-    def close(self):
+    def close(self, timeout: float = 5.0):
+        """Ask the worker to exit.  One that does not within ``timeout`` (say,
+        wedged in ``env.step``) gets SIGTERM, which workers ignore, and then
+        SIGKILL, each followed by a bounded join, so shutdown never hangs."""
         try:
-            if self.proc.is_alive():
-                self.send("exit")
-                self.recv()
-                self.proc.join(timeout=5)
-        except (BrokenPipeError, EOFError):
+            if self.proc.is_alive() and not self._pending:
+                self.conn.send(("exit", None))
+                if self.conn.poll(timeout):
+                    self.conn.recv()
+                self.proc.join(timeout=timeout)
+        except (BrokenPipeError, EOFError, ConnectionResetError):
             pass
         if self.proc.is_alive():
             self.proc.terminate()
+            self.proc.join(timeout=1)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join(timeout=timeout)
 
 
 # ------------------------------------------------------------- vec bases
@@ -251,7 +259,7 @@ class VectorEnv(VectorEnvBase):
         return np.arange(self.num_envs) if idx is None else np.asarray(idx)
 
     def _setup_buffer(self, example_obs) -> None:
-        from pointcloud_rl_tpu.utils.shmem import SharedTreeBuffer
+        from ..utils.shmem import SharedTreeBuffer
 
         self._shm = SharedTreeBuffer.create(example_obs, self.num_envs)
         for i, w in enumerate(self.workers):
@@ -302,7 +310,7 @@ class VectorEnv(VectorEnvBase):
         return obs, rewards, dones, infos
 
     def step_random_actions(self, num):
-        from pointcloud_rl_tpu.utils.stats import split_num
+        from ..utils.stats import split_num
 
         counts = split_num(num, self.num_envs)
         for i, n in enumerate(counts):
@@ -426,7 +434,7 @@ class ThreadBasedVectorEnv(VectorEnvBase):
         return obs, rewards, dones, infos
 
     def step_random_actions(self, num):
-        from pointcloud_rl_tpu.utils.stats import split_num
+        from ..utils.stats import split_num
 
         counts = split_num(num, self.num_envs)
         futures = [(i, self._on(i, self.envs[i].step_random_actions, n))

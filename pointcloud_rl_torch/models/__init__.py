@@ -10,7 +10,7 @@ from typing import Optional
 
 import torch
 
-from pointcloud_rl_tpu.registry import Registry, build_from_cfg
+from ..registry import Registry, build_from_cfg
 
 NETWORK = Registry("network")
 REGRESSION = Registry("regression")

@@ -1,12 +1,13 @@
-"""Build the package's CUDA sources with nvcc at first use and load them.
+"""Build the package's native sources at first use and load them.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by hand
-(no PyTorch headers, so a build takes seconds) into
-``build/pointcloud_rl_torch/lib<name>_<hash>.so`` under the repository root.
-The hash of the source is part of the file name, so an edited source is
+with nvcc (no PyTorch headers, so a build takes seconds) into
+``build/pointcloud_rl_torch/lib<name>_<hash>.so`` under the repository root;
+each ``csrc/<name>.cpp`` (host code) likewise with g++.  The hash of the
+source and the flags is part of the file name, so an edited source is
 rebuilt and a stale library is never loaded.  The build writes to a
 temporary file and renames it, so concurrent processes never load a
-half-written library.
+half-written library.  This module imports neither torch nor numpy.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Dict
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pointcloud_rl_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+HOST_FLAGS = ["-O3", "-shared", "-fPIC"]  # portable: no -march=native
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -39,10 +41,29 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(ARCH_FLAGS).encode()).hexdigest()[:12]
+def library_path(name: str, suffix: str = ".cu") -> Path:
+    src = CSRC_DIR / f"{name}{suffix}"
+    flags = ARCH_FLAGS if suffix == ".cu" else HOST_FLAGS
+    digest = hashlib.sha1(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def _compile(cmd, src: Path, out: Path, verbose: bool) -> Path:
+    """Run ``cmd + ["-o", tmp, src]`` and rename tmp to ``out``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([*cmd, "-o", tmp, str(src)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{cmd[0]} failed for {src.name}:\n{proc.stdout}\n{proc.stderr}")
+        if verbose:
+            print(proc.stdout + proc.stderr, flush=True)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
 
 
 def build_library(name: str, verbose: bool = False) -> Path:
@@ -53,24 +74,19 @@ def build_library(name: str, verbose: bool = False) -> Path:
     out = library_path(name)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+    cmd = [find_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
     if verbose:
         cmd[1:1] = ["-Xptxas", "-v"]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}")
-        if verbose:
-            print(proc.stdout + proc.stderr, flush=True)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+    return _compile(cmd, CSRC_DIR / f"{name}.cu", out, verbose)
+
+
+def build_host_library(name: str) -> Path:
+    """Compile the host source ``csrc/<name>.cpp`` with g++ unless an
+    up-to-date library exists."""
+    out = library_path(name, ".cpp")
+    if out.exists():
+        return out
+    return _compile(["g++", *HOST_FLAGS], CSRC_DIR / f"{name}.cpp", out, verbose=False)
 
 
 def load_library(name: str, verbose: bool = False) -> ctypes.CDLL:

@@ -18,6 +18,11 @@ Dispatch has no fallback.  A CPU tensor runs the plain PyTorch version
 ``csrc/pointnet_fused.cu`` (built with nvcc at first use) or raises.  The
 plain version is the kernel's oracle in the tests on the card.
 
+The kernel splits the point axis into chunks (``choose_chunks``), one CTA
+per (batch row, chunk), and merges the chunks' partial (max, first index)
+in a second launch; the wrapper allocates the scratch that holds the
+prepared weights and the partials.
+
 Backward: the max-pool routes each output channel's gradient through ONE
 winner point (the first-index argmax, torch ``max`` semantics), so
 ``FusedPointNetBody`` saves the winner indices, gathers the [B, C_out]
@@ -29,6 +34,7 @@ plain PyTorch ops as in the JAX package).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -38,7 +44,6 @@ from . import build
 _LN_EPS = 1e-6
 _BIG_I32 = 2**30
 _LIB_NAME = "pointnet_fused"
-_MAX_WIDTH = 256  # the kernel's per-layer width limit (8 x 32 lanes)
 
 # Kernel launches per entry point in this process.  Each wrapper adds one
 # where it launches its kernel and nowhere else.
@@ -105,11 +110,15 @@ def load_library(verbose: bool = False) -> ctypes.CDLL:
     lib = build.load_library(_LIB_NAME, verbose=verbose)
     if not getattr(lib, "_pcrl_bound", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        common = [ci, vp, ci, ci, ci, vp, vp, ci, vp, vp, vp, vp, ci, vp, vp, vp, vp, ci, vp]
+        common = [ci, vp, ci, ci, ci, vp, vp, ci, vp, vp, vp, vp, ci, vp, vp, vp, vp, ci, ci, vp, vp]
         lib.pointnet_fused_fwd_idx.argtypes = common + [vp, vp]
         lib.pointnet_fused_fwd_idx.restype = ci
         lib.pointnet_fused_fwd_max.argtypes = common + [vp]
         lib.pointnet_fused_fwd_max.restype = ci
+        lib.pointnet_fused_tile_rows.argtypes = [ci] * 5
+        lib.pointnet_fused_tile_rows.restype = ci
+        lib.pointnet_fused_scratch_bytes.argtypes = [ci] * 7
+        lib.pointnet_fused_scratch_bytes.restype = ctypes.c_longlong
         lib.pointnet_fused_error_string.argtypes = [ci]
         lib.pointnet_fused_error_string.restype = ctypes.c_char_p
         lib._pcrl_bound = True
@@ -141,9 +150,8 @@ def _kernel_inputs(x, params, compute_dtype):
     B, N, c_in = x.shape
     (w1, b1, w2, b2, g2, be2, w3, b3, g3, be3) = params
     c1, c2, c3 = w1.shape[-1], w2.shape[-1], w3.shape[-1]
-    if B < 1 or N < 1 or max(c_in, c1, c2, c3) > _MAX_WIDTH:
-        raise ValueError(f"unsupported shape: x {tuple(x.shape)}, widths {c1}/{c2}/{c3} "
-                         f"(the kernel takes 1..{_MAX_WIDTH} channels per layer)")
+    if B < 1 or N < 1:
+        raise ValueError(f"unsupported shape: x {tuple(x.shape)}")
     dev = x.device
     _check(x, "x", dev, dtype, (B, N, c_in))
     f32 = torch.float32
@@ -154,7 +162,29 @@ def _kernel_inputs(x, params, compute_dtype):
         _check(t, name, dev, f32, (n,))
     if dtype == torch.bfloat16:
         w1, w2, w3 = (w.to(torch.bfloat16) for w in (w1, w2, w3))
+    if x.data_ptr() % 16:
+        x = x.clone()  # the kernel copies x in aligned 4-byte words
     return dtype, x, (w1, b1, w2, b2, g2, be2, w3, b3, g3, be3)
+
+
+def choose_chunks(B: int, N: int, tile_rows: int, n_sm: int) -> int:
+    """Point chunks per batch row: the count that minimises (waves of
+    B * chunks CTAs over the SMs) x (tiles per CTA), the fewest on ties.
+    No chunk is left empty."""
+    n_tiles = -(-N // tile_rows)
+    best_cost, best = None, 1
+    for want in range(1, n_tiles + 1):
+        per_chunk = -(-n_tiles // want)
+        chunks = -(-n_tiles // per_chunk)
+        cost = -(-B * chunks // n_sm) * per_chunk
+        if best_cost is None or cost < best_cost:
+            best_cost, best = cost, chunks
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _forward_kernel(x, params, compute_dtype, with_idx: bool):
@@ -166,14 +196,23 @@ def _forward_kernel(x, params, compute_dtype, with_idx: bool):
     dev, f32 = x.device, torch.float32
 
     lib = load_library()
+    bf16 = int(dtype == torch.bfloat16)
+    tile_rows = lib.pointnet_fused_tile_rows(bf16, c_in, c1, c2, c3)
+    if tile_rows <= 0:
+        raise ValueError(f"unsupported shape: C_in {c_in}, widths {c1}/{c2}/{c3} in {dtype} "
+                         "(the kernel takes widths 1..256 whose tiles fit in shared memory)")
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    chunks = choose_chunks(B, N, tile_rows, _sm_count(index))
+    scratch = torch.empty(lib.pointnet_fused_scratch_bytes(bf16, c_in, c1, c2, c3, B, chunks),
+                          device=dev, dtype=torch.uint8)
     pooled = torch.empty((B, c3), device=dev, dtype=f32)
     idx = torch.empty((B, c3), device=dev, dtype=torch.int32) if with_idx else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        args = [int(dtype == torch.bfloat16), x.data_ptr(), B, N, c_in,
+        args = [bf16, x.data_ptr(), B, N, c_in,
                 w1.data_ptr(), b1.data_ptr(), c1, w2.data_ptr(), b2.data_ptr(), g2.data_ptr(),
                 be2.data_ptr(), c2, w3.data_ptr(), b3.data_ptr(), g3.data_ptr(), be3.data_ptr(), c3,
-                pooled.data_ptr()]
+                chunks, scratch.data_ptr(), pooled.data_ptr()]
         if with_idx:
             name = "pointnet_fused_fwd_idx"
             err = lib.pointnet_fused_fwd_idx(*args, idx.data_ptr(), stream)

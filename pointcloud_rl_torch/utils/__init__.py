@@ -1,2 +1,2 @@
-"""Utilities of the port.  The JAX-free helpers of ``pointcloud_rl_tpu.utils``
-(logger, stats, timer, tree ops) are imported from there."""
+"""Utilities of the port: checkpoint I/O and its own copies of the JAX-free
+helpers of ``pointcloud_rl_tpu.utils`` (logger, stats, timer, tree ops, ...)."""

@@ -166,18 +166,49 @@ def test_library_path_changes_with_the_source(tmp_path, monkeypatch):
     assert first != second and first.parent == build.BUILD_DIR and first.name.startswith("libk_")
 
 
+@pytest.mark.parametrize("B, N, tile, chunks", [
+    (256, 1200, 128, 1), (4, 1200, 128, 10), (1, 1, 128, 1), (3, 1201, 64, 19), (64, 1200, 128, 2)])
+def test_chunk_count_fills_the_card(B, N, tile, chunks):
+    """Many chunks per row at act batch sizes, one at the update's B=256,
+    and never an empty chunk (132 SMs, one CTA each)."""
+    got = tpf.choose_chunks(B, N, tile, 132)
+    assert got == chunks
+    n_tiles = -(-N // tile)
+    per_chunk = -(-n_tiles // got)
+    assert (got - 1) * per_chunk < n_tiles <= got * per_chunk
+
+
 # ------------------------------------------------------------ on the card
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernel_matches_plain_on_gpu(dtype):
+# (name, B, N, C_in, widths): the main path's shapes (the update's encodes,
+# the act encode at 4 env workers), then edges: a single chunk, one point,
+# ragged tails, widths that are no multiple of 16 or 64, and widths narrow
+# enough that f32 weights stay in shared memory (bf16 weights always do here).
+GPU_SHAPES = [
+    ("slice", 8, 1200, 8, (128, 128, 256)),
+    ("act", 4, 1200, 8, (128, 128, 256)),
+    ("walker", 8, 1536, 9, (64, 128, 256)),
+    ("b1_n1", 1, 1, 8, (128, 128, 256)),
+    ("b1_n63", 1, 63, 9, (64, 128, 256)),
+    ("n1201", 2, 1201, 8, (128, 128, 256)),
+    ("odd_widths", 3, 300, 8, (40, 72, 200)),
+    ("narrow", 2, 100, 8, (32, 64, 128)),  # f32 weights resident in shared memory too
+]
+
+
+def _gpu_inputs(seed, B, N, c_in, widths):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    B, N, c_in = 8, 1200, 8
-    x, params = _inputs(5, B, N, c_in, widths=(128, 128, 256))
-    tdt = None if dtype == "float32" else torch.bfloat16
-    tx = torch.from_numpy(x).cuda()
-    tp = tuple(torch.from_numpy(p).cuda() for p in params)
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
+    x, params = _inputs(seed, B, N, c_in, widths=widths)
+    return torch.from_numpy(x).cuda(), tuple(torch.from_numpy(p).cuda() for p in params)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name, B, N, c_in, widths", GPU_SHAPES, ids=[s[0] for s in GPU_SHAPES])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_matches_plain_on_gpu(dtype, name, B, N, c_in, widths):
+    tx, tp = _gpu_inputs(5, B, N, c_in, widths)
+    tdt = None if dtype == "float32" else torch.bfloat16
     got, idx = tpf._forward_kernel(tx, tp, tdt, with_idx=True)
     got_max, _ = tpf._forward_kernel(tx, tp, tdt, with_idx=False)
     want, _ = tpf._forward_plain(tx, tp, tdt, with_idx=True)
@@ -185,6 +216,30 @@ def test_kernel_matches_plain_on_gpu(dtype):
     tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else dict(rtol=2e-2, atol=3e-2)
     torch.testing.assert_close(got, want, **tol)
     torch.testing.assert_close(got_max, got, rtol=0, atol=0)
+    assert int(idx.min()) >= 0 and int(idx.max()) < N
     h3 = tpf._body_rows(tx.reshape(B * N, c_in), tp, tdt).reshape(B, N, -1).float()
     at_winner = torch.gather(h3, 1, idx.long()[:, None, :])[:, 0, :]
     torch.testing.assert_close(at_winner, want, **tol)
+    # Repeated calls are bitwise equal (no atomics, fixed merge order).
+    again, idx_again = tpf._forward_kernel(tx, tp, tdt, with_idx=True)
+    assert torch.equal(again, got) and torch.equal(idx_again, idx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_copies_in_different_chunks_take_the_first_index_on_gpu(dtype):
+    """Three copies of 400 points, each copy in other chunks than the rest:
+    every winner is the first copy's, exactly the plain first-index argmax."""
+    tx, tp = _gpu_inputs(6, 4, 400, 8, (128, 128, 256))
+    tx = torch.cat([tx, tx, tx], dim=1)  # [4, 1200, 8]
+    tdt = None if dtype == "float32" else torch.bfloat16
+    lib = tpf.load_library()
+    tile = lib.pointnet_fused_tile_rows(int(tdt is not None), 8, 128, 128, 256)
+    chunks = tpf.choose_chunks(4, 1200, tile, torch.cuda.get_device_properties(0).multi_processor_count)
+    per_chunk = -(-(-(-1200 // tile)) // chunks) * tile
+    assert per_chunk <= 400, "the copies must fall in different chunks"
+    _, idx = tpf._forward_kernel(tx, tp, tdt, with_idx=True)
+    _, want = tpf._forward_plain(tx, tp, tdt, with_idx=True)
+    torch.cuda.synchronize()
+    assert int(idx.max()) < 400
+    assert torch.equal(idx, want)
