@@ -12,8 +12,9 @@ Phases (any failure exits non-zero and prints no result):
    ``HMMA``) instructions in each kernel; the body kernels of both entry
    points must hold ``HGMMA`` (the tensor cores' warpgroup products).
 3. Each kernel against its plain PyTorch version on the same inputs, at the
-   training slice's encoder shape (f32), the act encode's (4 env workers,
-   f32) and the walker encoder's (f32 and bf16), then at edge shapes (one
+   training slices' encoder shapes (SAC f32, DrQ f32 and bf16), the act
+   encode's (4 env workers, f32 and bf16) and the walker encoder's (f32 and
+   bf16), then at edge shapes (one
    batch row, one point, ragged tails, widths that are no multiple of 16):
    pooled values, winner indices (the kernel's winner must attain the plain
    max), bitwise-equal repeated calls, a cloud of three copies of the same
@@ -21,19 +22,29 @@ Phases (any failure exits non-zero and prints no result):
    argmax exactly), gradients of ``FusedPointNetBody`` against autograd
    through the plain body, and ms per call of kernel and plain version
    beside the least time the card could take (``bound_ms``).
-4. The slice through the CLI a user runs, in subprocesses: SAC + PointNet on
-   ``configs/mfrl/sac/synthetic/pn_fake_manipulation.py`` at its full
-   widths trains a few thousand env steps on the card, then evaluates from
-   ``model_final`` and resumes with ``--auto-resume``.  Each run starts a
-   fresh process and resets its kernel launch counts to 0 just before it
-   trains or evaluates; it writes them to ``run_summary.json``, and both
-   kernels must have launched.  Each run also lists there the
-   ``pointcloud_rl_tpu`` modules it loaded, which must be none.
-5. The trained checkpoint acts on a few environment observations on the
+4. The slices through the CLI a user runs, in subprocesses, each at its
+   config's full widths: it trains a few thousand env steps on the card,
+   evaluates from ``model_final`` and resumes with ``--auto-resume``.
+   ``sac``: SAC + PointNet on ``configs/mfrl/sac/synthetic/pn_fake_manipulation.py``
+   with a host replay.  ``drq_host``: DrQ (``num_aug=2``, a jitter on xyz;
+   the encoders run at 512 rows) on
+   ``configs/mfrl/drq/synthetic/pn_jitter_fake_manipulation.py`` with a host
+   replay.  ``drq_device``: the same DrQ on a ``DeviceReplayMemory`` of the
+   config's 100000 transitions on the card, stored packed in bf16, with the
+   bf16 agent flag (the kernels' bf16 path).  Each run starts a fresh
+   process and resets its kernel launch counts to 0 just before it trains
+   or evaluates; it writes them to ``run_summary.json``, and both kernels
+   must have launched in every training run.  Each run also lists there the
+   ``pointcloud_rl_tpu`` modules it loaded, which must be none, and its
+   replay (``drq_device``: a ``DeviceReplayMemory`` on ``cuda`` with its
+   bytes).  The loss of each run must be logged and finite.
+5. Each run's three checkpoints act on 32 environment observations on the
    card (fused kernel) and on the CPU (plain body): the eval-mode actions
-   must agree.
-6. One JSON line describing the kernels, then the result line
-   ``{"ok": true, "device": {...}}``.
+   must agree (f32 runs to ``ACTION_ATOL``, the bf16 run to
+   ``ACTION_ATOL_BF16``); the count of bf16 rounding flips that reach an
+   action is printed.
+6. One JSON line describing the kernels, the card's name and power limit,
+   then the result line ``{"ok": true, "device": {...}}``.
 
 Every time printed here was measured in this run, on the card named in
 phase 1.  The plain versions run with TF32 off
@@ -55,17 +66,30 @@ import time
 
 REPO = osp.dirname(osp.abspath(__file__))
 SLICE_CONFIG = "configs/mfrl/sac/synthetic/pn_fake_manipulation.py"
+DRQ_CONFIG = "configs/mfrl/drq/synthetic/pn_jitter_fake_manipulation.py"
+FUSED = "agent_cfg.actor_cfg.nn_cfg.visual_nn_cfg.fused=True"
+# The training runs of phase 4: (name, config, its --cfg-options, metric prefix).
+RUNS = [
+    ("sac", SLICE_CONFIG, [FUSED, "replay_cfg.capacity=20000"], "sac"),
+    ("drq_host", DRQ_CONFIG, [FUSED, "replay_cfg.capacity=20000"], "drq"),
+    ("drq_device", DRQ_CONFIG, [FUSED, "replay_cfg.type=DeviceReplayMemory",
+                                "replay_cfg.transfer_cfg.pack_features=True", "agent_cfg.bf16=True"], "drq"),
+]
 KERNEL_SOURCE = "pointcloud_rl_torch/csrc/pointnet_fused.cu"
 TPU_KERNELS = {
     "pointnet_fused_fwd_idx": "pointcloud_rl_tpu/ops/pointnet_fused.py:113",
     "pointnet_fused_fwd_max": "pointcloud_rl_tpu/ops/pointnet_fused.py:138",
 }
 # (name, B, N, C_in, widths, compute dtype name): the main path's shapes,
-# timed (the update's encodes at B=256, the act encode at 4 env workers,
-# the walker encoder), then edge shapes, checked only.
+# timed (SAC's update encodes at B=256, DrQ's at 2 x 256 rows in f32 and in
+# bf16, the act encode at 4 env workers in f32 and in bf16, the walker
+# encoder), then edge shapes, checked only.
 SHAPES = [
     ("slice_f32", 256, 1200, 8, (128, 128, 256), "float32"),
+    ("drq_f32", 512, 1200, 8, (128, 128, 256), "float32"),
+    ("drq_bf16", 512, 1200, 8, (128, 128, 256), "bfloat16"),
     ("act_f32", 4, 1200, 8, (128, 128, 256), "float32"),
+    ("act_bf16", 4, 1200, 8, (128, 128, 256), "bfloat16"),
     ("walker_f32", 256, 1536, 9, (64, 128, 256), "float32"),
     ("walker_bf16", 256, 1536, 9, (64, 128, 256), "bfloat16"),
 ]
@@ -98,6 +122,19 @@ GRAD_RTOL = 1e-3
 # Trained agent, kernel on the card vs plain body on the CPU: f32 features
 # that differ by ~1e-6, through the 1024-wide head and a tanh (slope <= 1).
 ACTION_ATOL = 1e-4
+# The bf16 agent: the card and the CPU round to bf16 at the same points
+# (each product, each bias add, h1..h3 in the body), but their f32 sums run
+# in another order, and a sum that lands on the other side of a rounding
+# step moves that value by one bf16 ulp.  A flip upstream moves the next
+# layer's f32 sums by far less than an ulp, so what reaches the action is
+# in the main a flip of the bf16 action mean itself: one ulp times the
+# tanh's slope, at most 2^-7 * sech^2(1) = 3.3e-3 over all means.  The
+# limit admits two such flips in one action element: 7e-3.  The flips seen
+# are counted and printed (actions that differ by more than FLIP_ABS).
+ACTION_ATOL_BF16 = 7e-3
+FLIP_ABS = 1e-5  # above the f32 noise of the tanh (~1e-7)
+REF_OBS = 32  # environment observations per checkpoint in phase 5
+REF_CHECKPOINTS = ("model_1500", "model_3000", "model_final")
 
 
 def fail(msg: str) -> None:
@@ -329,9 +366,9 @@ def phase_kernels(pf, report: dict, card: str) -> None:
           f"(limit {GRAD_RTOL})", flush=True)
 
 
-def run_cli(args, log_path: str, timeout: int) -> None:
-    cmd = [sys.executable, "-m", "pointcloud_rl_torch.apis.run_rl", SLICE_CONFIG, *args]
-    print("[slice] $ " + " ".join(cmd[1:]), flush=True)
+def run_cli(config: str, args, log_path: str, timeout: int) -> None:
+    cmd = [sys.executable, "-m", "pointcloud_rl_torch.apis.run_rl", config, *args]
+    print("[run] $ " + " ".join(cmd[1:]), flush=True)
     t0 = time.monotonic()
     with open(log_path, "w") as log:
         proc = subprocess.Popen(cmd, cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
@@ -346,7 +383,7 @@ def run_cli(args, log_path: str, timeout: int) -> None:
         with open(log_path) as f:
             tail = f.read()[-4000:]
         fail(f"run_rl exited with {rc}:\n{tail}")
-    print(f"[slice]   done in {time.monotonic() - t0:.1f} s", flush=True)
+    print(f"[run]   done in {time.monotonic() - t0:.1f} s", flush=True)
 
 
 def read_summary(wd: str) -> dict:
@@ -371,53 +408,54 @@ def read_metrics(path: str):
     return rows
 
 
-def phase_slice(work: str) -> dict:
-    root = osp.join(work, "slice")
+def phase_train(work: str, name: str, config: str, opts, prefix: str) -> dict:
+    """Train, evaluate and auto-resume one run; returns its summary."""
+    root = osp.join(work, name)
     wd = osp.join(root, "0")  # run_rl appends the seed to --work-dir
     common = ["--work-dir", root, "--seed", "0", "--device", "cuda"]
-    opts = ["agent_cfg.actor_cfg.nn_cfg.visual_nn_cfg.fused=True", "replay_cfg.capacity=20000",
-            "train_cfg.warm_steps=512", "train_cfg.exp_logger_cfg.type=csv", "train_cfg.n_log=500",
-            "train_cfg.n_checkpoint=1500", "eval_cfg.save_video=False", "eval_cfg.num=2"]
-    run_cli(common + ["--cfg-options", *opts, "train_cfg.total_steps=3000"],
-            osp.join(work, "train.log"), timeout=420)
+    opts = list(opts) + ["train_cfg.warm_steps=512", "train_cfg.exp_logger_cfg.type=csv", "train_cfg.n_log=500",
+                         "train_cfg.n_checkpoint=1500", "eval_cfg.save_video=False", "eval_cfg.num=2"]
+    run_cli(config, common + ["--cfg-options", *opts, "train_cfg.total_steps=3000"],
+            osp.join(work, f"{name}_train.log"), timeout=420)
     summary = read_summary(wd)
     if not summary["device"].startswith("cuda"):
-        fail(f"the slice ran on {summary['device']}")
+        fail(f"{name} ran on {summary['device']}")
     for kname, n in summary["launches"].items():
         if n <= 0:
-            fail(f"{kname} was never launched by the training run")
+            fail(f"{kname} was never launched by the {name} training run")
     for ckpt in ("model_1500", "model_3000", "model_final"):
         if not osp.isfile(osp.join(wd, "models", ckpt)):
-            fail(f"checkpoint {ckpt} missing")
+            fail(f"{name}: checkpoint {ckpt} missing")
     rows = read_metrics(osp.join(wd, "logs", "metrics.csv"))
-    if not any(r.get("train/sac/critic_loss") for r in rows):
-        fail("no SAC metrics were logged")
-    print(f"[slice] train: {summary['steps']} env steps, {summary['grad_steps']} updates on "
-          f"{summary['device_name']}; kernel launches {summary['launches']}", flush=True)
+    if not any(r.get(f"train/{prefix}/critic_loss") for r in rows):
+        fail(f"{name}: no train/{prefix}/critic_loss was logged")
+    replay = summary["replay"]
+    print(f"[{name}] train: {summary['steps']} env steps, {summary['grad_steps']} updates on "
+          f"{summary['device_name']}; kernel launches {summary['launches']}; replay {replay}", flush=True)
 
-    run_cli(common + ["--evaluation", "--resume-from", osp.join(wd, "models", "model_final"),
-                      "--cfg-options", *opts], osp.join(work, "eval.log"), timeout=180)
+    run_cli(config, common + ["--evaluation", "--resume-from", osp.join(wd, "models", "model_final"),
+                              "--cfg-options", *opts], osp.join(work, f"{name}_eval.log"), timeout=180)
     ev = read_summary(wd)
     if not ev["eval"] or not all(math.isfinite(v) for v in ev["eval"].values()):
-        fail(f"evaluation returned {ev['eval']}")
+        fail(f"{name}: evaluation returned {ev['eval']}")
     if ev["launches"]["pointnet_fused_fwd_max"] <= 0:
-        fail("evaluation never launched the max-only kernel")
-    print(f"[slice] eval from model_final: {ev['eval']}", flush=True)
+        fail(f"{name}: evaluation never launched the max-only kernel")
+    print(f"[{name}] eval from model_final: {ev['eval']}", flush=True)
 
-    run_cli(common + ["--auto-resume", "--cfg-options", *opts, "train_cfg.total_steps=3200"],
-            osp.join(work, "resume.log"), timeout=180)
+    run_cli(config, common + ["--auto-resume", "--cfg-options", *opts, "train_cfg.total_steps=3200"],
+            osp.join(work, f"{name}_resume.log"), timeout=180)
     rs = read_summary(wd)
     if rs["resume_steps"] != 3000 or rs["steps"] != 3200:
-        fail(f"auto-resume went from {rs['resume_steps']} to {rs['steps']}, expected 3000 -> 3200")
-    print(f"[slice] auto-resume: model_3000 -> {rs['steps']} env steps", flush=True)
-    summary["checkpoint"] = osp.join(wd, "models", "model_final")
+        fail(f"{name}: auto-resume went from {rs['resume_steps']} to {rs['steps']}, expected 3000 -> 3200")
+    print(f"[{name}] auto-resume: model_3000 -> {rs['steps']} env steps", flush=True)
+    summary["models_dir"] = osp.join(wd, "models")
     return summary
 
 
-def phase_reference(checkpoint: str) -> float:
-    """The trained agent on the card (fused kernel) against the same
-    checkpoint on the CPU (plain PyTorch body): eval-mode actions on a few
-    of the environment's own observations."""
+def phase_reference(name: str, config: str, opts, models_dir: str, atol: float) -> float:
+    """Each checkpoint of the run on the card (fused kernel) against the
+    same checkpoint on the CPU (plain PyTorch body): eval-mode actions on
+    ``REF_OBS`` of the environment's own observations."""
     import numpy as np
 
     from pointcloud_rl_torch.algorithms import build_agent
@@ -425,8 +463,11 @@ def phase_reference(checkpoint: str) -> float:
     from pointcloud_rl_torch.env import build_env, get_env_info
     from pointcloud_rl_torch.utils.checkpoint import load_checkpoint
 
-    cfg = load_config(osp.join(REPO, SLICE_CONFIG),
-                      {"agent_cfg.actor_cfg.nn_cfg.visual_nn_cfg.fused": True})
+    from pointcloud_rl_torch.config import DictAction
+
+    agent_opts = {k: DictAction._parse_value(v) for k, v in (o.split("=", 1) for o in opts)
+                  if k.startswith("agent_cfg.")}
+    cfg = load_config(osp.join(REPO, config), agent_opts)
     env_cfg = dict(cfg["env_cfg"])
     info = get_env_info(env_cfg)
     resolve_agent_placeholders(cfg, info)
@@ -434,22 +475,29 @@ def phase_reference(checkpoint: str) -> float:
     env = build_env(env_cfg)
     env.seed(1)
     frames = [env.reset()]
-    for _ in range(7):
-        frames.append(env.step(env.action_space.sample())[0])
+    while len(frames) < REF_OBS:
+        o, _, done, _ = env.step(env.action_space.sample())
+        frames.append(env.reset() if done else o)
     obs = {k: np.stack([f[k] for f in frames]) for k in frames[0]}
-    acts = {}
-    for device in ("cuda", "cpu"):
-        agent = build_agent(dict(agent_cfg, env_params=info, seed=0, device=device))
-        agent.load_state_dict(load_checkpoint(checkpoint, device))
-        acts[device] = agent.forward(obs, mode="eval")
-    err = float(np.abs(acts["cuda"] - acts["cpu"]).max())
-    if acts["cuda"].shape != (8, info["action_shape"]) or not np.isfinite(acts["cuda"]).all():
-        fail(f"actions of shape {acts['cuda'].shape} from the trained agent")
-    if err > ACTION_ATOL:
-        fail(f"trained agent: card vs CPU eval actions differ by {err:.3e} > {ACTION_ATOL}")
-    print(f"[reference] trained agent, card (kernel) vs CPU (plain) eval actions on 8 env "
-          f"observations: max abs diff {err:.3e} (limit {ACTION_ATOL})", flush=True)
-    return err
+    agents = {device: build_agent(dict(agent_cfg, env_params=info, seed=0, device=device))
+              for device in ("cuda", "cpu")}
+    worst = 0.0
+    for ckpt in REF_CHECKPOINTS:
+        acts = {}
+        for device, agent in agents.items():
+            agent.load_state_dict(load_checkpoint(osp.join(models_dir, ckpt), device))
+            acts[device] = agent.forward(obs, mode="eval")
+        diff = np.abs(acts["cuda"] - acts["cpu"])
+        if acts["cuda"].shape != (REF_OBS, info["action_shape"]) or not np.isfinite(acts["cuda"]).all():
+            fail(f"actions of shape {acts['cuda'].shape} from {ckpt}")
+        err = float(diff.max())
+        print(f"[reference] {name} {ckpt}: card (kernel) vs CPU (plain) eval actions on {REF_OBS} env "
+              f"observations: max abs diff {err:.3e} (limit {atol}); {int((diff > FLIP_ABS).sum())} of "
+              f"{diff.size} elements differ by more than {FLIP_ABS}", flush=True)
+        if err > atol:
+            fail(f"{name} {ckpt}: card vs CPU eval actions differ by {err:.3e} > {atol}")
+        worst = max(worst, err)
+    return worst
 
 
 def main() -> int:
@@ -481,20 +529,31 @@ def main() -> int:
     phase_kernels(pf, report, f"{kind} ({smi})")
 
     launches = {k: None for k in TPU_KERNELS}
+    by_run: dict = {}
     if not kernels_only:
         work = tempfile.mkdtemp(prefix="chip_smoke_", dir=osp.join(REPO, "build"))
+        summaries = {}
         try:
-            summary = phase_slice(work)
-            phase_reference(summary["checkpoint"])
+            for name, config, opts, prefix in RUNS:
+                summaries[name] = summary = phase_train(work, name, config, opts, prefix)
+                replay = summary["replay"]
+                if name == "drq_device" and not (replay["type"] == "DeviceReplayMemory"
+                                                 and replay["device"].startswith("cuda")
+                                                 and replay["storage_bytes"] > 0):
+                    fail(f"drq_device: the replay is {replay}, not a DeviceReplayMemory on cuda")
+                phase_reference(name, config, opts, summary["models_dir"],
+                                ACTION_ATOL_BF16 if "agent_cfg.bf16=True" in opts else ACTION_ATOL)
         finally:
             keep = osp.join(REPO, "build", "chip_smoke_logs")
             shutil.rmtree(keep, ignore_errors=True)
             shutil.copytree(work, keep, ignore=shutil.ignore_patterns("models", "*.py"))
             shutil.rmtree(work, ignore_errors=True)
-        launches = summary["launches"]
-        print(f"[slice] {summary['env_steps_per_s']:.1f} env steps/s, "
-              f"{summary['updates_per_s']:.1f} updates/s over the main loop "
-              f"({summary['main_loop_s']:.1f} s) on {kind} ({smi})", flush=True)
+        for name, summary in summaries.items():
+            by_run[name] = summary["launches"]
+            print(f"[{name}] {summary['env_steps_per_s']:.1f} env steps/s, "
+                  f"{summary['updates_per_s']:.1f} updates/s over the main loop "
+                  f"({summary['main_loop_s']:.1f} s) on {kind} ({smi})", flush=True)
+        launches = {k: sum(run[k] for run in by_run.values()) for k in TPU_KERNELS}
 
     kernels = []
     for kname, rec in report.items():
@@ -507,7 +566,9 @@ def main() -> int:
             "bound_ms": slice_t["bound_ms"], "bound_by": slice_t["bound_by"],
             "bound_formula": BOUND_FORMULA, "share_of_bound": slice_t["bound_ms"] / slice_t["ms"],
             "library_ms": None,  # no single PyTorch call computes body + LayerNorm + max-pool
-            "act_ms": shp["act_f32"]["ms"], "act_bound_ms": shp["act_f32"]["bound_ms"],
+            "launches_by_run": {name: run[kname] for name, run in by_run.items()},
+            **{f"{shape}_{key}": shp[shape][key] for shape in ("drq_f32", "drq_bf16", "act_f32", "act_bf16")
+               for key in ("ms", "plain_ms", "bound_ms")},
             "walker_f32_ms": shp["walker_f32"]["ms"],
             "walker_bf16_ms": shp["walker_bf16"]["ms"],
             "walker_bf16_bound_ms": shp["walker_bf16"]["bound_ms"],

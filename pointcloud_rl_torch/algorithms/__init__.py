@@ -5,7 +5,7 @@ from ..registry import Registry, build_from_cfg
 MFRL = Registry("mfrl")
 
 # Agents of the JAX package not ported yet, with their ROADMAP.md queue A item.
-_NOT_PORTED = {"DrQ": "A2", "DDPG": "A4"}
+_NOT_PORTED = {"DDPG": "A4"}
 
 
 def build_agent(cfg, default_args=None):
@@ -17,5 +17,6 @@ def build_agent(cfg, default_args=None):
 
 
 from .sac import SAC  # noqa: E402,F401
+from .drq import DrQ  # noqa: E402,F401
 
-__all__ = ["MFRL", "build_agent", "SAC"]
+__all__ = ["MFRL", "build_agent", "SAC", "DrQ"]

@@ -1,7 +1,7 @@
 """Host-side agent plumbing (port of ``pointcloud_rl_tpu/algorithms/base.py``).
 
 An agent lives on one explicit ``device``: observations come in as numpy
-trees, go to that device, and actions come back as numpy arrays.
+trees (or tensors), go to that device, and actions come back as numpy arrays.
 """
 
 from __future__ import annotations
@@ -26,9 +26,12 @@ def example_obs_from_shape(obs_shape, batch: int = 1):
 
 
 def to_torch(tree: Any, device: torch.device) -> Any:
-    """numpy tree -> tensors on ``device`` (dtypes kept: uint8 rgb stays uint8)."""
+    """numpy tree -> tensors on ``device`` (dtypes kept: uint8 rgb stays uint8).
+    Tensors already on ``device`` (a device replay's batch) pass through."""
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
     return torch.as_tensor(np.asarray(tree)).to(device)
 
 

@@ -10,11 +10,13 @@ work-dir layout, plus ``--device``::
 ``--device cuda`` (the default) raises when no GPU is visible: nothing
 moves to the CPU on its own.  The rollout and the evaluator (whose env
 workers start through ``forkserver``) are built before the agent, i.e.
-before CUDA is initialised.  Each run writes ``run_summary.json`` into the
-work dir: the device, step counts, throughput over the main loop, the
-fused-PointNet kernel launches of the process, evaluation results, and the
-``pointcloud_rl_tpu`` modules loaded in the process (none: the port stands
-alone).
+before CUDA is initialised; the replay after the agent, since a
+``DeviceReplayMemory`` keeps its storage on the agent's device.  Each run
+writes ``run_summary.json`` into the work dir: the device, step counts,
+throughput over the main loop, the replay (type, device, bytes of storage),
+the fused-PointNet kernel launches of the process, evaluation results, and
+the ``pointcloud_rl_tpu`` modules loaded in the process (none: the port
+stands alone).
 """
 
 from __future__ import annotations
@@ -136,6 +138,18 @@ def _check_device(name: str):
     return device, device_name
 
 
+def replay_summary(replay) -> Optional[dict]:
+    """Type, device, capacity, length and bytes of storage of a replay."""
+    if replay is None:
+        return None
+    from ..utils.tree_ops import tree_leaves
+
+    storage = replay.storage if hasattr(replay, "storage") else replay.memory
+    nbytes = 0 if storage is None else sum(int(x.nbytes) for x in tree_leaves(storage))
+    return {"type": type(replay).__name__, "device": str(getattr(replay, "device", "cpu")),
+            "capacity": replay.capacity, "size": len(replay), "storage_bytes": nbytes}
+
+
 def run(cfg: Config, work_dir: str, seed: int, args) -> dict:
     from ..env import build_evaluation, build_replay, build_rollout, get_env_info
     from ..loggers import build_exp_logger
@@ -156,7 +170,6 @@ def run(cfg: Config, work_dir: str, seed: int, args) -> dict:
     resolve_agent_placeholders(cfg, env_info)
 
     # Env workers first (forkserver), then CUDA.
-    replay = build_replay(dict(cfg["replay_cfg"]), dict(seed=seed)) if "replay_cfg" in cfg else None
     rollout = None
     if not args.evaluation and "rollout_cfg" in cfg:
         rollout_cfg = dict(cfg["rollout_cfg"])
@@ -191,6 +204,7 @@ def run(cfg: Config, work_dir: str, seed: int, args) -> dict:
         agent_cfg["device"] = device
         agent = build_agent(agent_cfg)
         logger.info(f"Agent: {agent_cfg['type']}, params: {agent.num_params:,}, device: {device} ({device_name})")
+        replay = build_replay(cfg.get("replay_cfg"), dict(seed=seed), device=device)
 
         resume_steps = 0
         resume_path = args.resume_from
@@ -224,6 +238,7 @@ def run(cfg: Config, work_dir: str, seed: int, args) -> dict:
                            updates_per_s=out["grad_steps"] / secs)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+        summary["replay"] = replay_summary(replay)
         summary["launches"] = dict(pointnet_fused.launch_counts)
         summary["pointcloud_rl_tpu_modules"] = sorted(
             m for m in sys.modules if m.split(".")[0] == "pointcloud_rl_tpu")

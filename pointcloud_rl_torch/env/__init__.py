@@ -3,7 +3,9 @@
 Numpy-only copies of the ``pointcloud_rl_tpu.env`` modules the SAC +
 PointNet slice runs (each file names its source): that package's
 ``__init__`` imports its JAX device replay, so the port cannot import it.
-Nothing here imports torch, so env worker processes stay light.
+Nothing imported here imports torch, so env worker processes stay light;
+``device_replay`` (the torch port of the device replay) is imported by
+``build_replay`` only when a config asks for a ``DeviceReplayMemory``.
 """
 
 from .api import Env, ExtendedEnv, FrameStackWrapper, TimeLimit, Wrapper, true_done

@@ -144,8 +144,17 @@ def build_evaluation(cfg, default_args=None):
     return build_from_cfg(cfg, EVALUATIONS, default_args) if cfg is not None else None
 
 
-def build_replay(cfg, default_args=None):
-    return build_from_cfg(cfg, REPLAYS, default_args) if cfg is not None else None
+def build_replay(cfg, default_args=None, device=None):
+    """The replay ``cfg`` asks for; a ``DeviceReplayMemory`` keeps its
+    storage on ``device`` (when given), a host replay ignores it."""
+    if cfg is None:
+        return None
+    if cfg.get("type") == "DeviceReplayMemory":
+        from . import device_replay  # noqa: F401  (registers it; the one env module that imports torch)
+
+        if device is not None:
+            default_args = dict(default_args or {}, device=device)
+    return build_from_cfg(cfg, REPLAYS, default_args)
 
 
 def build_sampling(cfg, default_args=None):

@@ -9,6 +9,11 @@ separately), so a parameter's name maps one to one onto its flax path.
 ``num_heads`` stacks that many independent MLPs into one module, with
 kernels ``[heads, in, out]`` applied by a batched matmul: the port of the
 JAX critic's ``nn.vmap``-ed ensemble.
+
+``dtype="bfloat16"`` is the mixed-precision policy of the JAX package's
+``DenseBlock``: parameters stay f32, each Dense casts its input, kernel and
+bias to bf16 and emits bf16, LayerNorm runs (and emits) f32, and the MLP's
+output is cast back to f32 for the heads and losses.
 """
 
 from __future__ import annotations
@@ -57,12 +62,29 @@ def norm_kind_and_eps(norm_cfg) -> Tuple[Optional[str], float]:
     raise KeyError(f"Unknown norm type {kind}")
 
 
-def check_dtype(dtype) -> None:
-    """Only f32 models are ported; the bf16 agent flag waits for the walker recipe."""
-    if dtype not in (None, "float32", torch.float32):
-        raise NotImplementedError(
-            f"dtype={dtype!r}: the bf16 model path is not ported to pointcloud_rl_torch yet "
-            "(ROADMAP.md queue A, item A1)")
+def resolve_dtype(dtype) -> Optional[torch.dtype]:
+    """The matmul compute dtype of a config's ``dtype``: None (f32) for
+    None/"float32", torch.bfloat16 for "bfloat16"."""
+    if dtype in (None, "float32", torch.float32):
+        return None
+    if dtype in ("bfloat16", torch.bfloat16):
+        return torch.bfloat16
+    raise NotImplementedError(f"dtype={dtype!r}: the port computes in float32 or bfloat16")
+
+
+def dense(layer: nn.Module, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``layer`` (an ``nn.Linear`` or a ``StackedDense``) on ``x``, in the
+    compute dtype: None runs it as is, in f32; bf16 casts input, kernel and
+    bias to bf16 (the parameters stay f32) and emits bf16.  As in flax's
+    Dense, the product is rounded to bf16 before the bias is added."""
+    if dtype is None:
+        return layer(x.float())
+    x, w = x.to(dtype), layer.weight.to(dtype)
+    y = torch.bmm(x, w) if isinstance(layer, StackedDense) else F.linear(x, w)
+    if layer.bias is None:
+        return y
+    b = layer.bias.to(dtype)
+    return y + (b[:, None, :] if isinstance(layer, StackedDense) else b)
 
 
 class StackedDense(nn.Module):
@@ -117,7 +139,7 @@ class MLP(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        check_dtype(dtype)
+        self.compute_dtype = resolve_dtype(dtype)
         self.spec = [int(c) for c in mlp_spec]
         self.num_heads = num_heads
         norm_kind, eps = norm_kind_and_eps(norm_cfg)
@@ -165,15 +187,15 @@ class MLP(nn.Module):
         assert x.shape[-1] == self.spec[0], f"MLP input dim {x.shape[-1]} != spec[0] {self.spec[0]}"
         if self.num_heads is not None:
             x = x.expand(self.num_heads, *x.shape)  # [heads, B, D]
-        for dense, norm, act in self.plan:
-            x = getattr(self, dense)(x)
+        for layer, norm, act in self.plan:
+            x = dense(getattr(self, layer), x, self.compute_dtype)
             if norm is not None:
-                x = getattr(self, norm)(x)
+                x = getattr(self, norm)(x.float())
             if act is not None:
                 x = act(x)
         if self.num_heads is not None:
             x = x.movedim(0, -2)  # [B, heads, out]
-        return x
+        return x.float()
 
 
 @NETWORK.register_module()

@@ -4,6 +4,8 @@ Port of ``pointcloud_rl_tpu/models/builder.py``: with a shared backbone
 the critic's visual config is discarded and both read ``model.visual``;
 otherwise the critic builds its own encoder.  Every module draws its
 initial weights from one ``torch.Generator``, in a fixed order.
+``bf16=True`` opts every MLP and PointNet config into the bf16 matmul
+path (``dtype="bfloat16"``, unless the config sets its own dtype).
 """
 
 from __future__ import annotations
@@ -21,6 +23,16 @@ from .blocks import MLP
 _MLP_TYPES = ("MLP", "LinearMLP", "ConvMLP")
 _MLP_FIELDS = ("mlp_spec", "norm_cfg", "act_cfg", "bias", "inactivated_output", "ignore_first_ln",
                "zero_out_indices", "dtype")
+# Module types that take a mixed-precision compute dtype.
+_DTYPE_TYPES = _MLP_TYPES + ("PointNet",)
+
+
+def _inject_dtype(cfg: Optional[dict], dtype: str) -> Optional[dict]:
+    """Opt a sub-network into the bf16 matmul path if its type supports it."""
+    if cfg is not None and cfg.get("type") in _DTYPE_TYPES:
+        cfg = dict(cfg)
+        cfg.setdefault("dtype", dtype)
+    return cfg
 
 
 def _mlp_kwargs(cfg: Optional[dict]) -> Optional[dict]:
@@ -74,10 +86,8 @@ def build_actor_critic(
     bf16: bool = False,
     generator: Optional[torch.Generator] = None,
 ) -> ActorCriticModel:
-    """Build the live networks on the CPU; the caller moves them to its device."""
-    if bf16:
-        raise NotImplementedError("the bf16 agent flag is not ported to pointcloud_rl_torch yet "
-                                  "(ROADMAP.md queue A, item A1)")
+    """Build the live networks on the CPU; the caller moves them to its device.
+    ``bf16=True`` computes the matmuls in bf16; parameters stay f32."""
     if env_params.get("is_discrete", False):
         raise NotImplementedError("discrete actions are not ported to pointcloud_rl_torch yet "
                                   "(ROADMAP.md queue A, item A4)")
@@ -99,6 +109,9 @@ def build_actor_critic(
         raise NotImplementedError("recurrent policies are not ported to pointcloud_rl_torch yet "
                                   "(ROADMAP.md queue A, item A4)")
     actor_visual_cfg, actor_mlp_cfg = _split_nn_cfg(actor_cfg.get("nn_cfg"))
+    if bf16:
+        actor_visual_cfg = _inject_dtype(actor_visual_cfg, "bfloat16")
+        actor_mlp_cfg = _inject_dtype(actor_mlp_cfg, "bfloat16")
     head_cfg = _head_cfg_with_bound(actor_cfg.get("head_cfg"), action_space)
     if head_cfg is not None:
         head_cfg.setdefault("dim_output", int(np.prod(action_shape)))
@@ -108,6 +121,9 @@ def build_actor_critic(
 
     # ---- critic -------------------------------------------------------
     critic_visual_cfg, critic_mlp_cfg = _split_nn_cfg(critic_cfg.get("nn_cfg"))
+    if bf16:
+        critic_visual_cfg = _inject_dtype(critic_visual_cfg, "bfloat16")
+        critic_mlp_cfg = _inject_dtype(critic_mlp_cfg, "bfloat16")
     critic_visual = None
     if not shared_backbone:
         # the critic's own encoder, or an independent copy of the actor's

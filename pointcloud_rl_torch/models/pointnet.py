@@ -10,6 +10,11 @@ hand-written CUDA kernel of ``ops/pointnet_fused.py`` when the layer
 pattern is the one that kernel computes (``_fused_supported``).  Both
 paths read ONE parameter set, the unfused ``conv`` MLP's, so a checkpoint
 moves freely between ``fused=True`` and ``fused=False``.
+
+``dtype="bfloat16"`` follows the JAX package: the per-point MLP (or the
+fused body, as its compute dtype) and ``final_dense`` compute in bf16,
+LayerNorms and the pooled feature in f32.  A packed bf16 ``{"pcd": ...}``
+enters the fused body as it is.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from torch import nn
 
 from ..ops.pointnet_fused import fused_pointnet_body
 from . import NETWORK
-from .blocks import MLP, check_dtype
+from .blocks import MLP, dense, resolve_dtype
 from .init import torch_default_
 
 _PN_LN_EPS = 1e-6  # the PointNet body's default norm (JAX pointnet.py:133)
@@ -70,7 +75,7 @@ class PointNet(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        check_dtype(dtype)
+        self.compute_dtype = resolve_dtype(dtype)
         if feature_transform:
             raise NotImplementedError(
                 f"PointNet feature_transform={list(feature_transform)} (STN) is not ported to "
@@ -84,7 +89,7 @@ class PointNet(nn.Module):
         norm = norm_cfg if norm_cfg is not None else {"type": "LN", "eps": _PN_LN_EPS}
         self.conv = MLP([feat_dim] + self.mlp_spec, norm_cfg=norm, act_cfg=act_cfg,
                         inactivated_output=False, ignore_first_ln=ignore_first_ln,
-                        generator=generator)
+                        dtype=dtype, generator=generator)
         self.out_channels = out_channels
         if out_channels is not None:
             self.final_dense = nn.Linear(self.mlp_spec[-1], out_channels)
@@ -119,9 +124,9 @@ class PointNet(nn.Module):
         feature = preprocess_pointcloud(obs)  # [B, N, C]
         if self._fused_supported():
             # the kernel reads x as contiguous [B, N, C] rows
-            pooled = fused_pointnet_body(feature.contiguous(), self.body_params())
+            pooled = fused_pointnet_body(feature.contiguous(), self.body_params(), self.compute_dtype)
         else:
             pooled = self.conv(feature).max(dim=-2).values
         if self.out_channels is not None:
-            pooled = self.final_ln(self.final_dense(pooled))
+            pooled = self.final_ln(dense(self.final_dense, pooled, self.compute_dtype).float())
         return pooled

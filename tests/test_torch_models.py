@@ -19,8 +19,10 @@ from pointcloud_rl_tpu.config import Config
 
 torch.set_num_threads(1)
 
-SLICE_CONFIG = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))),
-                        "configs/mfrl/sac/synthetic/pn_fake_manipulation.py")
+_REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
+SLICE_CONFIG = osp.join(_REPO, "configs/mfrl/sac/synthetic/pn_fake_manipulation.py")
+# The DrQ slice: the same networks and env, DrQ with num_aug=2 and a jitter.
+DRQ_CONFIG = osp.join(_REPO, "configs/mfrl/drq/synthetic/pn_jitter_fake_manipulation.py")
 # The slice config at test size: 64 points, PointNet [16,16,32] -> 16,
 # heads 32 wide, batch 16.
 TINY = {
@@ -40,12 +42,13 @@ FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 LOGP_TOL = dict(rtol=1e-3, atol=1e-4)
 
 
-def slice_setup(fused=True, **agent_overrides):
-    """(resolved agent_cfg dict, env_info, env_cfg) of the tiny slice."""
+def slice_setup(fused=True, config=SLICE_CONFIG, **agent_overrides):
+    """(resolved agent_cfg dict, env_info, env_cfg) of the tiny slice
+    (``config``: the SAC slice's, or ``DRQ_CONFIG``)."""
     from pointcloud_rl_torch.env import get_env_info
     from pointcloud_rl_torch.models import get_kwargs_from_shape, replace_placeholder_with_args
 
-    cfg = Config.fromfile(SLICE_CONFIG)
+    cfg = Config.fromfile(config)
     cfg.merge_from_dict(dict(TINY, **{"agent_cfg.actor_cfg.nn_cfg.visual_nn_cfg.fused": fused}))
     env_cfg = dict(cfg["env_cfg"])
     env_info = get_env_info(env_cfg)

@@ -5,8 +5,9 @@ tensorboardX, dm_control or MuJoCo, and the port imports nothing of the
 JAX package either.  A ``sitecustomize`` on the subprocesses' path makes
 every one of those imports (``pointcloud_rl_tpu`` included) fail, in the process
 and in every process it starts (the env workers included); then every
-``pointcloud_rl_torch`` module is imported and the slice's CLI takes a few
-CPU steps with two env worker processes.
+``pointcloud_rl_torch`` module is imported and the slices' CLI takes a few
+CPU steps with two env worker processes: SAC on a host replay, and DrQ on
+a ``DeviceReplayMemory`` with packed bf16 storage and the bf16 agent flag.
 """
 
 import json
@@ -20,7 +21,8 @@ import torch
 
 sys.path.insert(0, osp.dirname(__file__))
 
-from test_torch_models import SLICE_CONFIG, TINY_CLI  # noqa: E402
+import pytest  # noqa: E402
+from test_torch_models import DRQ_CONFIG, SLICE_CONFIG, TINY_CLI  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -65,19 +67,31 @@ def test_every_module_imports_without_jax(tmp_path):
     out = subprocess.run([sys.executable, "-c", script], env=_env(tmp_path), cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert int(out.stdout.split()[-1]) >= 50  # every module of the package was imported
+    # every module of the package was imported (53 with augment, drq,
+    # obs_transfer and device_replay)
+    assert int(out.stdout.split()[-1]) >= 53
 
 
-def test_slice_trains_without_jax(tmp_path):
+SLICES = {
+    "sac": (SLICE_CONFIG, [], "sac"),
+    "drq_device_replay_bf16": (DRQ_CONFIG, ["replay_cfg.type=DeviceReplayMemory",
+                                            "replay_cfg.transfer_cfg.pack_features=True", "agent_cfg.bf16=True"],
+                               "drq"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SLICES))
+def test_slice_trains_without_jax(name, tmp_path):
+    config, extra, prefix = SLICES[name]
     wd = tmp_path / "wd"
-    cmd = [sys.executable, "-m", "pointcloud_rl_torch.apis.run_rl", SLICE_CONFIG,
+    cmd = [sys.executable, "-m", "pointcloud_rl_torch.apis.run_rl", config,
            "--work-dir", str(wd), "--seed", "0", "--device", "cpu", "--cfg-options", *TINY_CLI,
            "agent_cfg.actor_cfg.nn_cfg.visual_nn_cfg.fused=True", "replay_cfg.capacity=500",
            "train_cfg.total_steps=48", "train_cfg.warm_steps=32", "train_cfg.n_log=16",
-           "train_cfg.exp_logger_cfg.type=csv", "rollout_cfg.num_procs=2", "eval_cfg.num_procs=1"]
+           "train_cfg.exp_logger_cfg.type=csv", "rollout_cfg.num_procs=2", "eval_cfg.num_procs=1", *extra]
     out = subprocess.run(cmd, env=_env(tmp_path), cwd=REPO, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert osp.isfile(wd / "0" / "models" / "model_final")
-    assert "sac/critic_loss" in (wd / "0" / "logs" / "metrics.csv").read_text().splitlines()[0]
+    assert f"{prefix}/critic_loss" in (wd / "0" / "logs" / "metrics.csv").read_text().splitlines()[0]
     summary = json.loads((wd / "0" / "run_summary.json").read_text())
     assert summary["pointcloud_rl_tpu_modules"] == []

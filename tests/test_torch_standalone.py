@@ -28,6 +28,7 @@ from pointcloud_rl_tpu.env.obs_process import pcd_base as jax_pcd_base
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 SLICE_CONFIG = osp.join(REPO, "configs/mfrl/sac/synthetic/pn_fake_manipulation.py")
+DRQ_CONFIG = osp.join(REPO, "configs/mfrl/drq/synthetic/pn_jitter_fake_manipulation.py")
 PORT_SOURCES = sorted(glob.glob(osp.join(REPO, "pointcloud_rl_torch", "**", "*.py"), recursive=True)
                       + [osp.join(REPO, "chip_smoke.py"), osp.join(REPO, "tools", "profile_torch_slice.py")])
 
@@ -54,21 +55,33 @@ def test_no_port_source_imports_the_jax_package():
 
 def test_registries_are_the_ports_own():
     from pointcloud_rl_torch.algorithms import MFRL
-    from pointcloud_rl_torch.env.builder import ENVS
+    from pointcloud_rl_torch.env import device_replay  # noqa: F401  (registers DeviceReplayMemory)
+    from pointcloud_rl_torch.env.builder import ENVS, REPLAYS
     from pointcloud_rl_torch.loggers import EXP_LOGGER
     from pointcloud_rl_torch.models import NETWORK
+    from pointcloud_rl_torch.ops.augment import AUGMENTATIONS
 
-    for reg in (MFRL, ENVS, EXP_LOGGER, NETWORK):
+    for reg in (MFRL, ENVS, EXP_LOGGER, NETWORK, REPLAYS, AUGMENTATIONS):
         assert type(reg) is TorchRegistry, reg
-    # The slice's config resolves its ``type=`` names in the port's registries.
-    cfg = TorchConfig.fromfile(SLICE_CONFIG)
-    assert cfg["agent_cfg"]["type"] in MFRL
-    assert cfg["env_cfg"]["type"] in ENVS
+    # The slices' configs resolve their ``type=`` names in the port's registries.
+    for path in (SLICE_CONFIG, DRQ_CONFIG):
+        cfg = TorchConfig.fromfile(path)
+        assert cfg["agent_cfg"]["type"] in MFRL
+        assert cfg["env_cfg"]["type"] in ENVS
+    assert TorchConfig.fromfile(DRQ_CONFIG)["agent_cfg"]["obs_aug"]["type"] in AUGMENTATIONS
+    assert {"ReplayMemory", "DeviceReplayMemory"} <= set(REPLAYS.module_dict)
+    # every augmentation and replay of the JAX package has its port
+    from pointcloud_rl_tpu.env.builder import REPLAYS as JAX_REPLAYS
+    from pointcloud_rl_tpu.ops.augment import AUGMENTATIONS as JAX_AUGMENTATIONS
+
+    assert set(AUGMENTATIONS.module_dict) == set(JAX_AUGMENTATIONS.module_dict)
+    assert set(REPLAYS.module_dict) >= set(JAX_REPLAYS.module_dict) & {"ReplayMemory", "DeviceReplayMemory"}
 
 
-def test_config_loads_the_slice_config_like_the_original():
-    got = TorchConfig.fromfile(SLICE_CONFIG)
-    want = JaxConfig.fromfile(SLICE_CONFIG)
+@pytest.mark.parametrize("path", [SLICE_CONFIG, DRQ_CONFIG], ids=["sac", "drq"])
+def test_config_loads_the_slice_config_like_the_original(path):
+    got = TorchConfig.fromfile(path)
+    want = JaxConfig.fromfile(path)
     assert got.to_dict() == want.to_dict()
     opts = {"agent_cfg.batch_size": 16, "env_cfg.n_points": 64}
     got.merge_from_dict(opts)

@@ -1,20 +1,32 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's training slice, on one GPU.
+"""Where the time goes in a training slice of the PyTorch port, on one GPU.
 
-    python3 tools/profile_torch_slice.py [--updates 20] [--cycles 50] [--out chiprun_out/profile.json]
+    python3 tools/profile_torch_slice.py [--config CONFIG] [--cfg-options K=V ...]
+        [--updates 20] [--cycles 50] [--out PATH]
 
-Builds the slice (``configs/mfrl/sac/synthetic/pn_fake_manipulation.py`` at
-its full widths, the fused PointNet kernel, 4 env workers, a host replay)
+    # the SAC slice (the default), then DrQ with a host replay, then DrQ on
+    # the device replay with packed bf16 storage and the bf16 agent flag:
+    python3 tools/profile_torch_slice.py
+    python3 tools/profile_torch_slice.py --config configs/mfrl/drq/synthetic/pn_jitter_fake_manipulation.py
+    python3 tools/profile_torch_slice.py --config configs/mfrl/drq/synthetic/pn_jitter_fake_manipulation.py \
+        --cfg-options replay_cfg.type=DeviceReplayMemory replay_cfg.transfer_cfg.pack_features=True \
+        agent_cfg.bf16=True replay_cfg.capacity=100000
+
+Builds the slice (the config at its full widths with ``fused=True``, 4 env
+workers, its replay: a host replay of ``replay_cfg.capacity=20000`` unless
+``--cfg-options`` says otherwise, or a ``DeviceReplayMemory`` on the card)
 exactly as ``run_rl`` does, fills the replay with random steps, then:
 
 1. Collection: ``--cycles`` cycles of ``rollout.forward_with_policy(agent,
    n_steps)`` (4 env steps, one act encode at B=4 each), timed on the host
    clock; the rollout's own split (agent / simulation / copy) per cycle; and
    one profiled window of 10 cycles for the device time.
-2. Update: ``--updates`` calls of ``agent.update_parameters`` (host sampling,
-   upload, the SAC step): wall ms per update and its parts, each timed alone
-   (``replay.sample``, the batch's preparation and upload, the SAC step and
-   its metric fetch); then under ``torch.profiler``: device busy ms per
+2. Update: ``--updates`` calls of ``agent.update_parameters`` (sampling,
+   upload, the SAC or DrQ step): wall ms per update and its parts, each
+   timed alone and synchronised (``replay.sample``: a host gather, or a
+   gather on the card; the batch's preparation and upload, nothing to upload
+   for a device replay; the step and its metric fetch); then under
+   ``torch.profiler``: device busy ms per
    update, the card's idle share, and device ms per update by kernel (the
    fused PointNet kernels summed apart).
 
@@ -33,7 +45,7 @@ import sys
 import time
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
-SLICE_CONFIG = osp.join(REPO, "configs/mfrl/sac/synthetic/pn_fake_manipulation.py")
+SLICE_CONFIG = "configs/mfrl/sac/synthetic/pn_fake_manipulation.py"
 
 
 def device_split(prof, n: int) -> dict:
@@ -58,6 +70,8 @@ def device_split(prof, n: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", default=SLICE_CONFIG, help="config path, relative to the repo")
+    ap.add_argument("--cfg-options", nargs="+", default=[], help="config overrides a.b=v, as run_rl takes them")
     ap.add_argument("--updates", type=int, default=20)
     ap.add_argument("--cycles", type=int, default=50)
     ap.add_argument("--out", default=osp.join(REPO, "chiprun_out", "profile_torch_slice.json"))
@@ -69,23 +83,25 @@ def main() -> int:
         raise SystemExit("profile_torch_slice: needs an NVIDIA GPU")
     sys.path.insert(0, REPO)
     from pointcloud_rl_torch.algorithms import build_agent
-    from pointcloud_rl_torch.apis.run_rl import load_config, resolve_agent_placeholders
+    from pointcloud_rl_torch.apis.run_rl import load_config, replay_summary, resolve_agent_placeholders
+    from pointcloud_rl_torch.config import DictAction
     from pointcloud_rl_torch.env import build_replay, build_rollout, get_env_info
     from pointcloud_rl_torch.ops import pointnet_fused
 
-    cfg = load_config(SLICE_CONFIG, {"agent_cfg.actor_cfg.nn_cfg.visual_nn_cfg.fused": True,
-                                     "replay_cfg.capacity": 20000})
+    options = {"agent_cfg.actor_cfg.nn_cfg.visual_nn_cfg.fused": True, "replay_cfg.capacity": 20000}
+    options.update((k, DictAction._parse_value(v)) for k, v in (o.split("=", 1) for o in args.cfg_options))
+    cfg = load_config(osp.join(REPO, args.config), options)
     env_cfg = dict(cfg["env_cfg"])
     info = get_env_info(env_cfg)
     resolve_agent_placeholders(cfg, info)
     train_cfg = dict(cfg["train_cfg"])
     n_steps = int(train_cfg.get("n_steps", 4))
-    replay = build_replay(dict(cfg["replay_cfg"]), dict(seed=0))
     rollout_cfg = dict(cfg["rollout_cfg"], env_cfg=env_cfg, base_seed=0)
     rollout = build_rollout(rollout_cfg)
     try:
-        agent = build_agent(dict(dict(cfg["agent_cfg"]), env_params=info, seed=0,
-                                 device=torch.device("cuda", 0)))
+        device = torch.device("cuda", 0)
+        agent = build_agent(dict(dict(cfg["agent_cfg"]), env_params=info, seed=0, device=device))
+        replay = build_replay(cfg.get("replay_cfg"), dict(seed=0), device=device)
         rollout.forward_with_policy(None, 1024, replay)  # random warm-up fill
         card = torch.cuda.get_device_name(0)
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -129,6 +145,7 @@ def main() -> int:
         for _ in range(args.updates):
             t0 = time.perf_counter()
             sample = replay.sample(agent.batch_size)
+            torch.cuda.synchronize()
             t1 = time.perf_counter()
             batch = agent._prepare_batch(sample)
             torch.cuda.synchronize()
@@ -148,8 +165,9 @@ def main() -> int:
         update = {"ms_per_update": update_ms, "ms_per_update_profiled": profiled_ms,
                   "launches_per_update": launches, **parts, **upd,
                   "device_idle_share": 1.0 - upd["device_ms"] / profiled_ms}
-        result = {"card": card, "nvidia_smi": smi, "torch": torch.__version__,
-                  "collect": collect, "update": update}
+        result = {"card": card, "nvidia_smi": smi, "torch": torch.__version__, "config": args.config,
+                  "cfg_options": args.cfg_options, "agent": type(agent).__name__,
+                  "replay": replay_summary(replay), "collect": collect, "update": update}
     finally:
         rollout.close()
     os.makedirs(osp.dirname(osp.abspath(args.out)), exist_ok=True)
