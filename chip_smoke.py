@@ -31,24 +31,42 @@ Phases (any failure exits non-zero and prints no result):
    ``configs/mfrl/drq/synthetic/pn_jitter_fake_manipulation.py`` with a host
    replay.  ``drq_device``: the same DrQ on a ``DeviceReplayMemory`` of the
    config's 100000 transitions on the card, stored packed in bf16, with the
-   bf16 agent flag (the kernels' bf16 path).  Each run starts a fresh
+   bf16 agent flag (the kernels' bf16 path).  ``drq_voxel``: DrQ with the
+   voxel encoder (``SparseCNN``, dense 32^3 grid, a shift on xyz) on
+   ``configs/mfrl/drq/synthetic/sparse_conv_shift_fake_manipulation.py``
+   with a host replay, in f32.  Each run starts a fresh
    process and resets its kernel launch counts to 0 just before it trains
-   or evaluates; it writes them to ``run_summary.json``, and both kernels
-   must have launched in every training run.  Each run also lists there the
+   or evaluates; it writes them to ``run_summary.json``.  The PointNet runs
+   must have launched both kernels in training (and the max-only one in
+   evaluation); the voxel run, which has no PointNet, must have launched
+   neither.  Each run also lists there the
    ``pointcloud_rl_tpu`` modules it loaded, which must be none, and its
    replay (``drq_device``: a ``DeviceReplayMemory`` on ``cuda`` with its
    bytes).  The loss of each run must be logged and finite.
 5. Each run's three checkpoints act on 32 environment observations on the
-   card (fused kernel) and on the CPU (plain body): the eval-mode actions
+   card (fused kernel, or the voxel encoder's torch ops) and on the CPU
+   (plain versions): the eval-mode actions
    must agree (f32 runs to ``ACTION_ATOL``, the bf16 run to
    ``ACTION_ATOL_BF16``); the count of bf16 rounding flips that reach an
    action is printed.
-6. One JSON line describing the kernels, the card's name and power limit,
-   then the result line ``{"ok": true, "device": {...}}``.
+6. The encoders that have no hand kernel (the voxel CNN, dense and
+   sparse, VN, the 2D CNNs, PointNet with its STNs), each at the shape its
+   config and algorithm give it: built once from a seeded generator, the
+   same state dict on the card and on the CPU; the card's forward output
+   on the whole batch (its first ``GRAD_ROWS`` rows against the CPU's) and
+   every parameter's gradient on those rows must agree (``ENC_TOL``; VN
+   ``VN_TOL``); ms per forward and
+   per forward + backward (CUDA events) beside the FLOP count
+   (``torch.utils.flop_counter``: the products, matmuls and convolutions)
+   and the least time the card could take in f32 and in TF32.
+7. One JSON line describing the encoders, one describing the kernels, the
+   card's name and power limit, then the result line
+   ``{"ok": true, "device": {...}}``.
 
 Every time printed here was measured in this run, on the card named in
 phase 1.  The plain versions run with TF32 off
-(``torch.backends.cuda.matmul.allow_tf32 = False``), i.e. in full f32.
+(``torch.backends.cuda.matmul.allow_tf32 = False``), i.e. in full f32; the
+encoders' convolutions are f32 by their own setting (``ops/conv.py``).
 """
 
 from __future__ import annotations
@@ -67,13 +85,17 @@ import time
 REPO = osp.dirname(osp.abspath(__file__))
 SLICE_CONFIG = "configs/mfrl/sac/synthetic/pn_fake_manipulation.py"
 DRQ_CONFIG = "configs/mfrl/drq/synthetic/pn_jitter_fake_manipulation.py"
+VOXEL_CONFIG = "configs/mfrl/drq/synthetic/sparse_conv_shift_fake_manipulation.py"
 FUSED = "agent_cfg.actor_cfg.nn_cfg.visual_nn_cfg.fused=True"
-# The training runs of phase 4: (name, config, its --cfg-options, metric prefix).
+# The training runs of phase 4: (name, config, its --cfg-options, metric
+# prefix, whether its encoder is the fused PointNet: the runs that are must
+# launch both kernels, the others neither).
 RUNS = [
-    ("sac", SLICE_CONFIG, [FUSED, "replay_cfg.capacity=20000"], "sac"),
-    ("drq_host", DRQ_CONFIG, [FUSED, "replay_cfg.capacity=20000"], "drq"),
+    ("sac", SLICE_CONFIG, [FUSED, "replay_cfg.capacity=20000"], "sac", True),
+    ("drq_host", DRQ_CONFIG, [FUSED, "replay_cfg.capacity=20000"], "drq", True),
     ("drq_device", DRQ_CONFIG, [FUSED, "replay_cfg.type=DeviceReplayMemory",
-                                "replay_cfg.transfer_cfg.pack_features=True", "agent_cfg.bf16=True"], "drq"),
+                                "replay_cfg.transfer_cfg.pack_features=True", "agent_cfg.bf16=True"], "drq", True),
+    ("drq_voxel", VOXEL_CONFIG, ["replay_cfg.capacity=20000"], "drq", False),
 ]
 KERNEL_SOURCE = "pointcloud_rl_torch/csrc/pointnet_fused.cu"
 TPU_KERNELS = {
@@ -408,7 +430,17 @@ def read_metrics(path: str):
     return rows
 
 
-def phase_train(work: str, name: str, config: str, opts, prefix: str) -> dict:
+def check_launches(name: str, stage: str, launches: dict, pointnet: bool, kernels) -> None:
+    """A PointNet run launches each of ``kernels``; any other run none."""
+    for kname in kernels:
+        n = launches[kname]
+        if pointnet and n <= 0:
+            fail(f"{kname} was never launched by the {name} {stage} run")
+        if not pointnet and n != 0:
+            fail(f"{kname} launched {n} times in the {name} {stage} run, whose encoder is not PointNet")
+
+
+def phase_train(work: str, name: str, config: str, opts, prefix: str, pointnet: bool) -> dict:
     """Train, evaluate and auto-resume one run; returns its summary."""
     root = osp.join(work, name)
     wd = osp.join(root, "0")  # run_rl appends the seed to --work-dir
@@ -420,9 +452,7 @@ def phase_train(work: str, name: str, config: str, opts, prefix: str) -> dict:
     summary = read_summary(wd)
     if not summary["device"].startswith("cuda"):
         fail(f"{name} ran on {summary['device']}")
-    for kname, n in summary["launches"].items():
-        if n <= 0:
-            fail(f"{kname} was never launched by the {name} training run")
+    check_launches(name, "training", summary["launches"], pointnet, TPU_KERNELS)
     for ckpt in ("model_1500", "model_3000", "model_final"):
         if not osp.isfile(osp.join(wd, "models", ckpt)):
             fail(f"{name}: checkpoint {ckpt} missing")
@@ -438,8 +468,7 @@ def phase_train(work: str, name: str, config: str, opts, prefix: str) -> dict:
     ev = read_summary(wd)
     if not ev["eval"] or not all(math.isfinite(v) for v in ev["eval"].values()):
         fail(f"{name}: evaluation returned {ev['eval']}")
-    if ev["launches"]["pointnet_fused_fwd_max"] <= 0:
-        fail(f"{name}: evaluation never launched the max-only kernel")
+    check_launches(name, "evaluation", ev["launches"], pointnet, ["pointnet_fused_fwd_max"])
     print(f"[{name}] eval from model_final: {ev['eval']}", flush=True)
 
     run_cli(config, common + ["--auto-resume", "--cfg-options", *opts, "train_cfg.total_steps=3200"],
@@ -500,6 +529,197 @@ def phase_reference(name: str, config: str, opts, models_dir: str, atol: float) 
     return worst
 
 
+# Card vs CPU, both f32: cuDNN / cuBLAS and the CPU's kernels sum in other
+# orders, scatter-means add with atomics on the card, and LayerNorms divide
+# by per-row stds: a few ulps per layer on O(1) features, 1e-4 absolute and
+# relative on the forward; the gradients sum over the rows in other orders
+# too, 1e-3 of each gradient's largest element.  (atol, rtol, gradient rtol)
+ENC_TOL = (1e-4, 1e-4, 1e-3)
+# VN at vn.py's widths is ill-conditioned in f32: VNLeakyReLU divides by
+# |d|^2 + 1e-8 of learned directions that can be near 0, and each block
+# feeds the next, so f32 rounding grows through the blocks.  On 8 clouds of
+# this phase the CPU's f32 output is 4.7e-4 from its f64 output (scale 2.9,
+# after the final LayerNorm) and its gradients 1.6e-3 of scale
+# (``tools/vn_f32_gap.py``).  Card and CPU each sit about that far from
+# f64, so their gap is up to twice it; the limits are ~3x.
+VN_TOL = (3e-3, 3e-3, 1e-2)
+# Phase 6: the encoders without a hand kernel, at the shapes their configs
+# and algorithms give them (DrQ's 512 rows for the voxel CNN, SAC's 256 for
+# the rest; NatureCNN and IMPALA at the shapes of tests/test_models.py).
+# (name, config file or None, config overrides, input, batch, tolerances).
+ENCODERS = [
+    ("sparse_cnn_dense", "configs/_base_/net_sparse_conv_maniskill.py", {}, "cloud", 512, ENC_TOL),
+    ("sparse_cnn_sparse", "configs/_base_/net_sparse_conv_maniskill.py", {"impl": "sparse"}, "cloud", 512, ENC_TOL),
+    ("vn_pointnet", "configs/mfrl/sac/maniskill/vn.py", {}, "lattice_cloud", 256, VN_TOL),
+    ("dmc_encoder", "configs/_base_/net_cnn_dmc.py", {}, ("rgb", 9, 84), 256, ENC_TOL),
+    ("nature_cnn", None, dict(type="NatureCNN", in_channels=9, image_size=(84, 84), out_channels=256),
+     ("rgb", 9, 84), 256, ENC_TOL),
+    ("impala", None, dict(type="IMPALA", in_channel=3, num_pixels=64 * 64, out_feature_size=128),
+     ("rgb", 3, 64), 256, ENC_TOL),
+    ("pointnet_stn", "configs/_base_/net_pn_maniskill.py", {"feature_transform": [1, 2]}, "cloud", 256, ENC_TOL),
+]
+PLACEHOLDERS = {"pcd_all_channel": 8, "image_channels": 9, "image_size": (84, 84)}
+PEAK_F32 = 67e12  # FLOP/s of plain f32 outside the tensor cores (H100 SXM datasheet)
+GRAD_ROWS = 32  # rows of the batch whose features and parameter gradients are compared, card vs CPU
+
+
+def encoder_cfg(path, overrides) -> dict:
+    """The visual encoder config of ``path`` (placeholders filled as the
+    env shapes fill them) with ``overrides``; or ``overrides`` alone."""
+    if path is None:
+        return dict(overrides)
+    from pointcloud_rl_torch.config import Config
+
+    cfg = dict(Config.fromfile(osp.join(REPO, path))["agent_cfg"]["actor_cfg"]["nn_cfg"]["visual_nn_cfg"])
+    cfg = {k: PLACEHOLDERS.get(v, v) if isinstance(v, str) else v for k, v in cfg.items()}
+    cfg.update(overrides)
+    return cfg
+
+
+def encoder_inputs(kind, B: int) -> dict:
+    """CPU inputs: ``cloud``, B clouds of the voxel config's env (random
+    actions); ``lattice_cloud``, those clouds on a 1/64 lattice, each point
+    paired with its negation, so the mean is exactly 0 and every squared
+    distance of VN's k-NN is exact on both devices (the neighbours, ties
+    included, are the same); or seeded uint8 images ``(rgb, C, H)``."""
+    import numpy as np
+    import torch
+
+    if isinstance(kind, tuple):
+        _, c, hw = kind
+        g = torch.Generator().manual_seed(5)
+        return {"rgb": torch.randint(0, 256, (B, c, hw, hw), generator=g, dtype=torch.uint8)}
+    from pointcloud_rl_torch.config import Config
+    from pointcloud_rl_torch.env import build_env
+
+    env = build_env(dict(Config.fromfile(osp.join(REPO, VOXEL_CONFIG))["env_cfg"]))
+    env.seed(2)
+    frames = [env.reset()]
+    while len(frames) < B:
+        o, _, done, _ = env.step(env.action_space.sample())
+        frames.append(env.reset() if done else o)
+    env.close()
+    obs = {k: np.stack([f[k] for f in frames]) for k in ("xyz", "rgb", "seg")}
+    if kind == "lattice_cloud":
+        half = obs["xyz"].shape[-1] // 2
+        xyz = np.round(obs["xyz"][..., :half] * 64) / 64
+        obs = {"xyz": np.concatenate([xyz, -xyz], -1).astype(np.float32),
+               **{k: np.concatenate([obs[k][..., :half]] * 2, -1) for k in ("rgb", "seg")}}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in obs.items()}
+
+
+def sparse_needed_flop(net, obs) -> int:
+    """FLOP of the sparse path's products that these inputs need: the stem,
+    2 * C_in * C_out per (valid output site, tap) that finds a valid input
+    voxel, and the final Dense.  (The implementation multiplies every slot
+    of the table by every tap, valid or not.)"""
+    import torch
+
+    from pointcloud_rl_torch.models.pointnet import preprocess_pointcloud
+    from pointcloud_rl_torch.ops.sparse_conv import _coord_key, downsample_sites, tap_offsets
+    from pointcloud_rl_torch.ops.voxelize import INT32_MAX, voxelize_sparse
+
+    with torch.no_grad():
+        feature = preprocess_pointcloud(obs)
+        B, N, c = feature.shape
+        spec = net.MLP_0.spec
+        flop = 2 * B * N * sum(a * b for a, b in zip(spec[:-1], spec[1:]))
+        cap = net.sparse_capacity or N
+        _, coords, valid = voxelize_sparse(feature[..., :3], feature[..., :1], net.voxel_size, cap)
+        c_in = spec[-1]
+        for c_out in net.widths:
+            out_c, out_v = downsample_sites(coords, valid, net.stride, cap)
+            sorted_key = torch.where(valid, _coord_key(coords), INT32_MAX).sort(dim=1).values
+            hits = torch.zeros((), dtype=torch.long, device=coords.device)
+            for off in tap_offsets(net.kernel_size, coords.device):
+                q = _coord_key(out_c * net.stride + off)
+                pos = torch.searchsorted(sorted_key, q).clamp(0, cap - 1)
+                hits += ((sorted_key.gather(1, pos) == q) & out_v).sum()
+            flop += 2 * c_in * c_out * int(hits)
+            coords, valid, c_in = out_c, out_v, c_out
+        return flop + 2 * B * c_in * net.out_channels
+
+
+def encoder_bounds(flop: int, nbytes: int) -> dict:
+    mem = nbytes / PEAK_BYTES
+    return {"flop": flop, "bytes": nbytes, "bound_f32_ms": 1e3 * max(flop / PEAK_F32, mem),
+            "bound_tf32_ms": 1e3 * max(flop / PEAK_TF32, mem)}
+
+
+def phase_encoders(card: str) -> list:
+    import copy
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from pointcloud_rl_torch.models import build_all
+
+    results = []
+    for name, path, overrides, kind, B, (atol, rtol, grad_rtol) in ENCODERS:
+        cfg = encoder_cfg(path, overrides)
+        cpu_net = build_all(cfg, generator=torch.Generator().manual_seed(0))
+        net = copy.deepcopy(cpu_net).cuda()
+        obs_cpu = encoder_inputs(kind, B)
+        obs = {k: v.cuda() for k, v in obs_cpu.items()}
+        # the card's forward on the whole batch; its first rows against the CPU's
+        with torch.no_grad():
+            got = net(obs)
+        rows = {k: v[:GRAD_ROWS] for k, v in obs_cpu.items()}
+        want = cpu_net(rows)
+        out_dim = want.shape[-1]
+        err = check_close(f"{name} forward, card vs CPU", got[:GRAD_ROWS].cpu(), want.detach(), atol, rtol)
+        # parameter gradients of a fixed weighted sum of those rows' features
+        w = torch.randn((B, out_dim), generator=torch.Generator().manual_seed(6))
+        (want * w[:GRAD_ROWS]).sum().backward()
+        (net({k: v.cuda() for k, v in rows.items()}) * w[:GRAD_ROWS].cuda()).sum().backward()
+        worst = 0.0
+        for (pname, a), b in zip(net.named_parameters(), cpu_net.parameters()):
+            rel = float((a.grad.cpu() - b.grad).abs().max()) / (float(b.grad.abs().max()) + 1e-12)
+            if not math.isfinite(rel) or rel > grad_rtol:
+                fail(f"{name} gradient of {pname}: card vs CPU max-err/scale {rel:.3e} > {grad_rtol}")
+            worst = max(worst, rel)
+        del cpu_net, want, got
+        w = w.cuda()
+
+        def fwd_bwd():
+            net.zero_grad(set_to_none=True)
+            (net(obs) * w).sum().backward()
+
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: net(obs), iters=10)
+        step_ms = time_ms(fwd_bwd, iters=10)
+        with torch.no_grad(), FlopCounterMode(display=False) as fc:
+            net(obs)
+        fwd_flop = fc.get_total_flops()
+        with FlopCounterMode(display=False) as fc:
+            fwd_bwd()
+        step_flop = fc.get_total_flops()
+        in_bytes = sum(v.numel() * v.element_size() for v in obs.values())
+        p_bytes = sum(p.numel() * 4 for p in net.parameters())
+        out_bytes = B * out_dim * 4
+        rec = {"name": name, "type": cfg["type"], "batch": B,
+               "input": {k: list(v.shape) for k, v in obs.items()}, "max_abs_err": err,
+               "grad_max_err_over_scale": worst, "fwd_ms": fwd_ms, "fwd_bwd_ms": step_ms,
+               "fwd": encoder_bounds(fwd_flop, in_bytes + p_bytes + out_bytes),
+               "fwd_bwd": encoder_bounds(step_flop, in_bytes + 2 * p_bytes + out_bytes)}
+        if cfg.get("impl") == "sparse":
+            need = sparse_needed_flop(net, obs)
+            rec["fwd_needed"] = encoder_bounds(need, in_bytes + p_bytes + out_bytes)
+            rec["fwd_bwd_needed"] = encoder_bounds(3 * need, in_bytes + 2 * p_bytes + out_bytes)
+        results.append(rec)
+        f, fb = rec["fwd"], rec["fwd_bwd"]
+        print(f"[encoders] {name} ({cfg['type']}) B={B} {rec['input']}: card vs CPU forward max abs err "
+              f"{err:.3e}, gradients max-err/scale {worst:.3e}; fwd {fwd_ms:.3f} ms ({f['flop']:.3e} FLOP, bound "
+              f"f32 {f['bound_f32_ms']:.3f} / TF32 {f['bound_tf32_ms']:.3f} ms), fwd+bwd {step_ms:.3f} ms "
+              f"({fb['flop']:.3e} FLOP, bound f32 {fb['bound_f32_ms']:.3f} / TF32 {fb['bound_tf32_ms']:.3f} ms)"
+              + (f"; needed by these inputs {rec['fwd_needed']['flop']:.3e} FLOP fwd" if "fwd_needed" in rec else "")
+              + f" on {card}", flush=True)
+        del net, obs, w
+        torch.cuda.empty_cache()
+    print(json.dumps({"encoders": results}), flush=True)
+    return results
+
+
 def main() -> int:
     if not osp.isdir(osp.join(REPO, "pointcloud_rl_torch")):
         fail(f"the port's package is not beside {__file__}; run from a checkout of the repo")
@@ -527,6 +747,7 @@ def main() -> int:
 
     report: dict = {}
     phase_kernels(pf, report, f"{kind} ({smi})")
+    print(f"[time] build and kernel phases: {time.monotonic() - t0:.1f} s", flush=True)
 
     launches = {k: None for k in TPU_KERNELS}
     by_run: dict = {}
@@ -534,8 +755,8 @@ def main() -> int:
         work = tempfile.mkdtemp(prefix="chip_smoke_", dir=osp.join(REPO, "build"))
         summaries = {}
         try:
-            for name, config, opts, prefix in RUNS:
-                summaries[name] = summary = phase_train(work, name, config, opts, prefix)
+            for name, config, opts, prefix, pointnet in RUNS:
+                summaries[name] = summary = phase_train(work, name, config, opts, prefix, pointnet)
                 replay = summary["replay"]
                 if name == "drq_device" and not (replay["type"] == "DeviceReplayMemory"
                                                  and replay["device"].startswith("cuda")
@@ -554,6 +775,9 @@ def main() -> int:
                   f"{summary['updates_per_s']:.1f} updates/s over the main loop "
                   f"({summary['main_loop_s']:.1f} s) on {kind} ({smi})", flush=True)
         launches = {k: sum(run[k] for run in by_run.values()) for k in TPU_KERNELS}
+        print(f"[time] through the training runs: {time.monotonic() - t0:.1f} s", flush=True)
+        phase_encoders(f"{kind} ({smi})")
+        print(f"[time] through the encoder phase: {time.monotonic() - t0:.1f} s", flush=True)
 
     kernels = []
     for kname, rec in report.items():

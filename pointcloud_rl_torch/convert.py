@@ -7,6 +7,8 @@ differ only in their leaf:
 
     flax ``Dense`` ``kernel`` [in, out]  <->  ``Linear.weight`` [out, in]
     stacked critic ``kernel`` [H, in, out] <-> ``weight`` [H, in, out] (as is)
+    flax ``Conv`` ``kernel`` [k..., in, out] <-> ``Conv{2,3}d.weight`` [out, in, k...]
+    sparse conv ``sparse_conv{i}_kernel`` [K^3, in, out] <-> the same name (as is)
     ``LayerNorm`` ``scale``               <->  ``weight``
     ``bias``                               <->  ``bias``
 
@@ -62,6 +64,8 @@ def _to_torch_name(path: Tuple[str, ...], value: np.ndarray) -> Tuple[str, np.nd
         parts[-1] = "weight"
         if value.ndim == 2:  # a plain Dense; stacked critic kernels stay [H, in, out]
             value = value.T
+        elif value.ndim >= 4:  # a 2D or 3D conv
+            value = value.transpose((value.ndim - 1, value.ndim - 2) + tuple(range(value.ndim - 2)))
     elif parts[-1] == "scale":
         parts[-1] = "weight"
     return ".".join(parts), value

@@ -1,9 +1,10 @@
 """Network zoo: torch modules built from registry configs.
 
 Port of ``pointcloud_rl_tpu/models``.  The same registries (NETWORK,
-REGRESSION) dispatch config ``type`` names; only the types on the SAC +
-PointNet slice are ported, and ``build_all`` raises ``NotImplementedError``
-for the rest, naming the ROADMAP.md item that ports them.
+REGRESSION) dispatch config ``type`` names.  The encoders (PointNet with
+its STNs, the voxel CNN, the 2D CNNs, VN) and the heads on the SAC path
+are ported; ``build_all`` raises ``NotImplementedError`` for the rest,
+naming the ROADMAP.md item that ports them.
 """
 
 from typing import Optional
@@ -18,14 +19,13 @@ REGRESSION = Registry("regression")
 # Config types of the JAX package that this port does not build yet, with
 # the ROADMAP.md queue A item that ports them.
 _NOT_PORTED = {
-    "NatureCNN": "A3", "DMCEncoder": "A3", "IMPALA": "A3",
-    "VoxelCNN": "A3", "SparseCNN": "A3", "VNPointNet": "A3",
     "RNN": "A4", "GRU": "A4",
     "GaussianHead": "A4", "SoftplusGaussianHead": "A4", "BasicHead": "A4",
     "TanhHead": "A4", "DiscreteBaseHead": "A4",
 }
 # Types whose constructor draws its initial weights from a generator.
-_SEEDED = ("MLP", "LinearMLP", "ConvMLP", "PointNet")
+_SEEDED = ("MLP", "LinearMLP", "ConvMLP", "PointNet", "VoxelCNN", "SparseCNN", "NatureCNN", "DMCEncoder",
+           "IMPALA", "VNPointNet")
 
 
 def build_all(cfg, default_args=None, generator: Optional[torch.Generator] = None):
@@ -48,7 +48,7 @@ def build_all(cfg, default_args=None, generator: Optional[torch.Generator] = Non
     )
 
 
-from . import blocks, heads, pointnet  # noqa: E402,F401  (registration side effects)
+from . import blocks, cnn, heads, pointnet, vn, voxel  # noqa: E402,F401  (registration side effects)
 from .actor_critic import ActorCriticModel  # noqa: E402,F401
 from .builder import build_actor_critic  # noqa: E402,F401
 from .utils import get_kwargs_from_shape, replace_placeholder_with_args  # noqa: E402,F401

@@ -15,6 +15,11 @@ moves freely between ``fused=True`` and ``fused=False``.
 fused body, as its compute dtype) and ``final_dense`` compute in bf16,
 LayerNorms and the pooled feature in f32.  A packed bf16 ``{"pcd": ...}``
 enters the fused body as it is.
+
+``feature_transform`` adds the STNs of the JAX package (``STNkd``): ``[1]``
+aligns xyz with a predicted 3 x 3 matrix, ``[2]`` splits the body into
+``conv1`` -> a feature STN (``fstn``) -> ``conv2``.  Both run on the plain
+path only; the fused kernel keeps its own conditions (``_fused_supported``).
 """
 
 from __future__ import annotations
@@ -53,6 +58,27 @@ def preprocess_pointcloud(obs) -> torch.Tensor:
     return torch.cat(feats, dim=-2).transpose(-1, -2)
 
 
+class STNkd(nn.Module):
+    """Spatial transformer predicting a k x k alignment matrix: an MLP over
+    the points, a max-pool, an MLP head to k * k, plus the identity."""
+
+    def __init__(self, k: int = 3, mlp_spec: Sequence[int] = (64, 128, 1024), norm_cfg: Optional[Any] = None,
+                 act_cfg: Any = "ReLU", ignore_first_ln: bool = True, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.k = k
+        spec = [int(c) for c in mlp_spec]
+        self.MLP_0 = MLP([k] + spec, norm_cfg=norm_cfg, act_cfg=act_cfg, inactivated_output=False,
+                         ignore_first_ln=ignore_first_ln, generator=generator)
+        head_spec = [spec[-1] // 2**i for i in range(len(spec))] + [k * k]
+        self.MLP_1 = MLP(head_spec, norm_cfg=norm_cfg, act_cfg=act_cfg, inactivated_output=True,
+                         generator=generator)
+
+    def forward(self, points):  # [B, N, k]
+        x = self.MLP_1(self.MLP_0(points).amax(dim=-2))
+        x = x.reshape(x.shape[:-1] + (self.k, self.k))
+        return torch.eye(self.k, dtype=x.dtype, device=x.device) + x
+
+
 @NETWORK.register_module()
 class PointNet(nn.Module):
     """Per-point MLP + symmetric max-pool encoder.
@@ -76,10 +102,7 @@ class PointNet(nn.Module):
     ):
         super().__init__()
         self.compute_dtype = resolve_dtype(dtype)
-        if feature_transform:
-            raise NotImplementedError(
-                f"PointNet feature_transform={list(feature_transform)} (STN) is not ported to "
-                "pointcloud_rl_torch yet (ROADMAP.md queue A, item A3)")
+        self.feature_transform = [int(t) for t in feature_transform]
         if not global_feat:
             raise NotImplementedError("Only global_feat=True is supported (parity with reference)")
         self.mlp_spec = [int(c) for c in mlp_spec]
@@ -87,9 +110,19 @@ class PointNet(nn.Module):
         self.act_cfg = act_cfg
         self.fused = fused
         norm = norm_cfg if norm_cfg is not None else {"type": "LN", "eps": _PN_LN_EPS}
-        self.conv = MLP([feat_dim] + self.mlp_spec, norm_cfg=norm, act_cfg=act_cfg,
-                        inactivated_output=False, ignore_first_ln=ignore_first_ln,
-                        dtype=dtype, generator=generator)
+        spec = self.mlp_spec
+        stn_kw = dict(norm_cfg=norm, act_cfg=act_cfg, ignore_first_ln=ignore_first_ln, generator=generator)
+        if 1 in self.feature_transform:
+            self.stn = STNkd(3, spec, **stn_kw)
+        if 2 in self.feature_transform:
+            self.conv1 = MLP([feat_dim, spec[0]], norm_cfg=norm, act_cfg=act_cfg, inactivated_output=False,
+                             ignore_first_ln=ignore_first_ln, generator=generator)
+            self.fstn = STNkd(spec[0], spec, **stn_kw)
+            self.conv2 = MLP(spec, norm_cfg=norm, act_cfg=act_cfg, inactivated_output=False, generator=generator)
+        else:
+            self.conv = MLP([feat_dim] + spec, norm_cfg=norm, act_cfg=act_cfg,
+                            inactivated_output=False, ignore_first_ln=ignore_first_ln,
+                            dtype=dtype, generator=generator)
         self.out_channels = out_channels
         if out_channels is not None:
             self.final_dense = nn.Linear(self.mlp_spec[-1], out_channels)
@@ -102,6 +135,7 @@ class PointNet(nn.Module):
         return (
             self.fused
             and len(self.mlp_spec) == 3
+            and not self.feature_transform
             and self.ignore_first_ln
             and (act in ("ReLU", {"type": "ReLU"}) or getattr(act, "get", lambda *_: None)("type") == "ReLU")
             # the kernel's LayerNorms use eps 1e-6
@@ -126,7 +160,15 @@ class PointNet(nn.Module):
             # the kernel reads x as contiguous [B, N, C] rows
             pooled = fused_pointnet_body(feature.contiguous(), self.body_params(), self.compute_dtype)
         else:
-            pooled = self.conv(feature).max(dim=-2).values
+            if 1 in self.feature_transform:
+                xyz = torch.einsum("...ni,...ij->...nj", feature[..., :3], self.stn(feature[..., :3]))
+                feature = torch.cat([xyz, feature[..., 3:]], dim=-1)
+            if 2 in self.feature_transform:
+                feature = self.conv1(feature)
+                feature = self.conv2(torch.einsum("...ni,...ij->...nj", feature, self.fstn(feature)))
+            else:
+                feature = self.conv(feature)
+            pooled = feature.max(dim=-2).values
         if self.out_channels is not None:
             pooled = self.final_ln(dense(self.final_dense, pooled, self.compute_dtype).float())
         return pooled

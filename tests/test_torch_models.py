@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from pointcloud_rl_torch.convert import flax_path, params_from_jax
+from pointcloud_rl_torch.convert import _to_torch_name, flax_path, params_from_jax
 from pointcloud_rl_tpu.config import Config
 
 torch.set_num_threads(1)
@@ -74,8 +74,7 @@ def jax_leaf(tree, name):
     node = tree
     for key in flax_path(name):
         node = node[key]
-    value = np.asarray(node)
-    return value.T if (flax_path(name)[-1] == "kernel" and value.ndim == 2) else value
+    return _to_torch_name(flax_path(name), np.asarray(node))[1]
 
 
 def _split_cfg(agent_cfg):

@@ -6,8 +6,9 @@ JAX package either.  A ``sitecustomize`` on the subprocesses' path makes
 every one of those imports (``pointcloud_rl_tpu`` included) fail, in the process
 and in every process it starts (the env workers included); then every
 ``pointcloud_rl_torch`` module is imported and the slices' CLI takes a few
-CPU steps with two env worker processes: SAC on a host replay, and DrQ on
-a ``DeviceReplayMemory`` with packed bf16 storage and the bf16 agent flag.
+CPU steps with two env worker processes: SAC on a host replay, DrQ on
+a ``DeviceReplayMemory`` with packed bf16 storage and the bf16 agent flag,
+and DrQ with the voxel encoder.
 """
 
 import json
@@ -23,6 +24,7 @@ sys.path.insert(0, osp.dirname(__file__))
 
 import pytest  # noqa: E402
 from test_torch_models import DRQ_CONFIG, SLICE_CONFIG, TINY_CLI  # noqa: E402
+from test_torch_voxel_slice import VOXEL_CONFIG, VOXEL_TINY_CLI  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -67,16 +69,18 @@ def test_every_module_imports_without_jax(tmp_path):
     out = subprocess.run([sys.executable, "-c", script], env=_env(tmp_path), cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    # every module of the package was imported (53 with augment, drq,
-    # obs_transfer and device_replay)
-    assert int(out.stdout.split()[-1]) >= 53
+    # every module of the package was imported (60 with the voxel, CNN and
+    # VN encoders and their ops)
+    assert int(out.stdout.split()[-1]) >= 60
 
 
+_FUSED = "agent_cfg.actor_cfg.nn_cfg.visual_nn_cfg.fused=True"
 SLICES = {
-    "sac": (SLICE_CONFIG, [], "sac"),
-    "drq_device_replay_bf16": (DRQ_CONFIG, ["replay_cfg.type=DeviceReplayMemory",
-                                            "replay_cfg.transfer_cfg.pack_features=True", "agent_cfg.bf16=True"],
-                               "drq"),
+    "sac": (SLICE_CONFIG, TINY_CLI + [_FUSED], "sac"),
+    "drq_device_replay_bf16": (DRQ_CONFIG, TINY_CLI + [_FUSED, "replay_cfg.type=DeviceReplayMemory",
+                                                       "replay_cfg.transfer_cfg.pack_features=True",
+                                                       "agent_cfg.bf16=True"], "drq"),
+    "drq_voxel": (VOXEL_CONFIG, VOXEL_TINY_CLI, "drq"),
 }
 
 
@@ -85,10 +89,9 @@ def test_slice_trains_without_jax(name, tmp_path):
     config, extra, prefix = SLICES[name]
     wd = tmp_path / "wd"
     cmd = [sys.executable, "-m", "pointcloud_rl_torch.apis.run_rl", config,
-           "--work-dir", str(wd), "--seed", "0", "--device", "cpu", "--cfg-options", *TINY_CLI,
-           "agent_cfg.actor_cfg.nn_cfg.visual_nn_cfg.fused=True", "replay_cfg.capacity=500",
+           "--work-dir", str(wd), "--seed", "0", "--device", "cpu", "--cfg-options", *extra, "replay_cfg.capacity=500",
            "train_cfg.total_steps=48", "train_cfg.warm_steps=32", "train_cfg.n_log=16",
-           "train_cfg.exp_logger_cfg.type=csv", "rollout_cfg.num_procs=2", "eval_cfg.num_procs=1", *extra]
+           "train_cfg.exp_logger_cfg.type=csv", "rollout_cfg.num_procs=2", "eval_cfg.num_procs=1"]
     out = subprocess.run(cmd, env=_env(tmp_path), cwd=REPO, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert osp.isfile(wd / "0" / "models" / "model_final")

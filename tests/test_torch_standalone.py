@@ -29,8 +29,10 @@ from pointcloud_rl_tpu.env.obs_process import pcd_base as jax_pcd_base
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 SLICE_CONFIG = osp.join(REPO, "configs/mfrl/sac/synthetic/pn_fake_manipulation.py")
 DRQ_CONFIG = osp.join(REPO, "configs/mfrl/drq/synthetic/pn_jitter_fake_manipulation.py")
+VOXEL_CONFIG = osp.join(REPO, "configs/mfrl/drq/synthetic/sparse_conv_shift_fake_manipulation.py")
 PORT_SOURCES = sorted(glob.glob(osp.join(REPO, "pointcloud_rl_torch", "**", "*.py"), recursive=True)
-                      + [osp.join(REPO, "chip_smoke.py"), osp.join(REPO, "tools", "profile_torch_slice.py")])
+                      + [osp.join(REPO, "chip_smoke.py"), osp.join(REPO, "tools", "profile_torch_slice.py"),
+                   osp.join(REPO, "tools", "vn_f32_gap.py")])
 
 
 def _imported_modules(path):
@@ -64,10 +66,11 @@ def test_registries_are_the_ports_own():
     for reg in (MFRL, ENVS, EXP_LOGGER, NETWORK, REPLAYS, AUGMENTATIONS):
         assert type(reg) is TorchRegistry, reg
     # The slices' configs resolve their ``type=`` names in the port's registries.
-    for path in (SLICE_CONFIG, DRQ_CONFIG):
+    for path in (SLICE_CONFIG, DRQ_CONFIG, VOXEL_CONFIG):
         cfg = TorchConfig.fromfile(path)
         assert cfg["agent_cfg"]["type"] in MFRL
         assert cfg["env_cfg"]["type"] in ENVS
+        assert cfg["agent_cfg"]["actor_cfg"]["nn_cfg"]["visual_nn_cfg"]["type"] in NETWORK
     assert TorchConfig.fromfile(DRQ_CONFIG)["agent_cfg"]["obs_aug"]["type"] in AUGMENTATIONS
     assert {"ReplayMemory", "DeviceReplayMemory"} <= set(REPLAYS.module_dict)
     # every augmentation and replay of the JAX package has its port
@@ -78,7 +81,7 @@ def test_registries_are_the_ports_own():
     assert set(REPLAYS.module_dict) >= set(JAX_REPLAYS.module_dict) & {"ReplayMemory", "DeviceReplayMemory"}
 
 
-@pytest.mark.parametrize("path", [SLICE_CONFIG, DRQ_CONFIG], ids=["sac", "drq"])
+@pytest.mark.parametrize("path", [SLICE_CONFIG, DRQ_CONFIG, VOXEL_CONFIG], ids=["sac", "drq", "drq_voxel"])
 def test_config_loads_the_slice_config_like_the_original(path):
     got = TorchConfig.fromfile(path)
     want = JaxConfig.fromfile(path)
