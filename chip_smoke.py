@@ -12,9 +12,10 @@ Phases (any failure exits non-zero and prints no result):
    ``HMMA``) instructions in each kernel; the body kernels of both entry
    points must hold ``HGMMA`` (the tensor cores' warpgroup products).
 3. Each kernel against its plain PyTorch version on the same inputs, at the
-   training slices' encoder shapes (SAC f32, DrQ f32 and bf16), the act
-   encode's (4 env workers, f32 and bf16) and the walker encoder's (f32 and
-   bf16), then at edge shapes (one
+   training slices' encoder shapes (SAC f32, DrQ f32 and bf16, the
+   recurrent target's 64 x 9 windows in f32; the recurrent critic's 64 x 8
+   rows are DrQ's 512), the act encode's (4 env workers, f32 and bf16) and
+   the walker encoder's (f32 and bf16), then at edge shapes (one
    batch row, one point, ragged tails, widths that are no multiple of 16):
    pooled values, winner indices (the kernel's winner must attain the plain
    max), bitwise-equal repeated calls, a cloud of three copies of the same
@@ -34,7 +35,11 @@ Phases (any failure exits non-zero and prints no result):
    bf16 agent flag (the kernels' bf16 path).  ``drq_voxel``: DrQ with the
    voxel encoder (``SparseCNN``, dense 32^3 grid, a shift on xyz) on
    ``configs/mfrl/drq/synthetic/sparse_conv_shift_fake_manipulation.py``
-   with a host replay, in f32.  Each run starts a fresh
+   with a host replay, in f32.  ``sac_rnn``: recurrent SAC on the SAC
+   config with ``pn_rnn.py``'s recurrent settings (a GRU of 128 between
+   PointNet and the heads, batch 64, ``TStepTransition`` windows of 8 on
+   the host replay).  ``ddpg``: DDPG/TD3 on the SAC config.  The DrQ runs
+   take 1500 env steps, the others 3000.  Each run starts a fresh
    process and resets its kernel launch counts to 0 just before it trains
    or evaluates; it writes them to ``run_summary.json``.  The PointNet runs
    must have launched both kernels in training (and the max-only one in
@@ -48,7 +53,9 @@ Phases (any failure exits non-zero and prints no result):
    (plain versions): the eval-mode actions
    must agree (f32 runs to ``ACTION_ATOL``, the bf16 run to
    ``ACTION_ATOL_BF16``); the count of bf16 rounding flips that reach an
-   action is printed.
+   action is printed.  The recurrent run acts on them as 8 steps of 4
+   envs, its GRU state threaded from step to step and reset for two envs
+   after the fourth.
 6. The encoders that have no hand kernel (the voxel CNN, dense and
    sparse, VN, the 2D CNNs, PointNet with its STNs), each at the shape its
    config and algorithm give it: built once from a seeded generator, the
@@ -59,9 +66,15 @@ Phases (any failure exits non-zero and prints no result):
    per forward + backward (CUDA events) beside the FLOP count
    (``torch.utils.flop_counter``: the products, matmuls and convolutions)
    and the least time the card could take in f32 and in TF32.
-7. One JSON line describing the encoders, one describing the kernels, the
-   card's name and power limit, then the result line
-   ``{"ok": true, "device": {...}}``.
+7. The modules of the recurrent and DDPG slices, each built once, the same
+   state dict on the card and on the CPU: the GRU's forward and backward at
+   the recurrent update's ``[64, 9, 160]`` (and its ms per call), one
+   discrete-SAC update at batch 256, one DDPG update at the SAC config's
+   full width (its noise injected on both), and six steps of each
+   optimizer branch; outputs, metrics and parameters must agree.
+8. One JSON line describing the encoders, one describing the modules, one
+   describing the kernels, the card's name and power limit, then the result
+   line ``{"ok": true, "device": {...}}``.
 
 Every time printed here was measured in this run, on the card named in
 phase 1.  The plain versions run with TF32 off
@@ -87,15 +100,23 @@ SLICE_CONFIG = "configs/mfrl/sac/synthetic/pn_fake_manipulation.py"
 DRQ_CONFIG = "configs/mfrl/drq/synthetic/pn_jitter_fake_manipulation.py"
 VOXEL_CONFIG = "configs/mfrl/drq/synthetic/sparse_conv_shift_fake_manipulation.py"
 FUSED = "agent_cfg.actor_cfg.nn_cfg.visual_nn_cfg.fused=True"
+# pn_rnn.py's recurrent settings on the SAC config.
+RNN_OPTS = ["agent_cfg.actor_cfg.nn_cfg.rnn_cfg.type=GRU", "agent_cfg.actor_cfg.nn_cfg.rnn_cfg.hidden_size=128",
+            "agent_cfg.batch_size=64", "replay_cfg.sampling_cfg.type=TStepTransition",
+            "replay_cfg.sampling_cfg.horizon=8"]
 # The training runs of phase 4: (name, config, its --cfg-options, metric
 # prefix, whether its encoder is the fused PointNet: the runs that are must
-# launch both kernels, the others neither).
+# launch both kernels, the others neither; env steps, checkpointed at half
+# and at the end).  The DrQ runs are cut to 1500 steps to keep the script
+# inside its time.
 RUNS = [
-    ("sac", SLICE_CONFIG, [FUSED, "replay_cfg.capacity=20000"], "sac", True),
-    ("drq_host", DRQ_CONFIG, [FUSED, "replay_cfg.capacity=20000"], "drq", True),
+    ("sac", SLICE_CONFIG, [FUSED, "replay_cfg.capacity=20000"], "sac", True, 3000),
+    ("sac_rnn", SLICE_CONFIG, [FUSED, *RNN_OPTS, "replay_cfg.capacity=20000"], "sac", True, 3000),
+    ("ddpg", SLICE_CONFIG, [FUSED, "agent_cfg.type=DDPG", "replay_cfg.capacity=20000"], "ddpg", True, 3000),
+    ("drq_host", DRQ_CONFIG, [FUSED, "replay_cfg.capacity=20000"], "drq", True, 1500),
     ("drq_device", DRQ_CONFIG, [FUSED, "replay_cfg.type=DeviceReplayMemory",
-                                "replay_cfg.transfer_cfg.pack_features=True", "agent_cfg.bf16=True"], "drq", True),
-    ("drq_voxel", VOXEL_CONFIG, ["replay_cfg.capacity=20000"], "drq", False),
+                                "replay_cfg.transfer_cfg.pack_features=True", "agent_cfg.bf16=True"], "drq", True, 1500),
+    ("drq_voxel", VOXEL_CONFIG, ["replay_cfg.capacity=20000"], "drq", False, 1500),
 ]
 KERNEL_SOURCE = "pointcloud_rl_torch/csrc/pointnet_fused.cu"
 TPU_KERNELS = {
@@ -103,12 +124,14 @@ TPU_KERNELS = {
     "pointnet_fused_fwd_max": "pointcloud_rl_tpu/ops/pointnet_fused.py:138",
 }
 # (name, B, N, C_in, widths, compute dtype name): the main path's shapes,
-# timed (SAC's update encodes at B=256, DrQ's at 2 x 256 rows in f32 and in
-# bf16, the act encode at 4 env workers in f32 and in bf16, the walker
-# encoder), then edge shapes, checked only.
+# timed (SAC's and DDPG's update encodes at B=256, DrQ's at 2 x 256 rows
+# in f32 and in bf16, which are also the recurrent critic's 64 x 8 window
+# rows, the recurrent target's 64 x 9, the act encode at 4 env workers in
+# f32 and in bf16, the walker encoder), then edge shapes, checked only.
 SHAPES = [
     ("slice_f32", 256, 1200, 8, (128, 128, 256), "float32"),
     ("drq_f32", 512, 1200, 8, (128, 128, 256), "float32"),
+    ("rnn_target_f32", 576, 1200, 8, (128, 128, 256), "float32"),
     ("drq_bf16", 512, 1200, 8, (128, 128, 256), "bfloat16"),
     ("act_f32", 4, 1200, 8, (128, 128, 256), "float32"),
     ("act_bf16", 4, 1200, 8, (128, 128, 256), "bfloat16"),
@@ -156,7 +179,7 @@ ACTION_ATOL = 1e-4
 ACTION_ATOL_BF16 = 7e-3
 FLIP_ABS = 1e-5  # above the f32 noise of the tanh (~1e-7)
 REF_OBS = 32  # environment observations per checkpoint in phase 5
-REF_CHECKPOINTS = ("model_1500", "model_3000", "model_final")
+REF_ENVS = 4  # a recurrent agent acts on them as REF_OBS // REF_ENVS steps of this many envs
 
 
 def fail(msg: str) -> None:
@@ -440,20 +463,24 @@ def check_launches(name: str, stage: str, launches: dict, pointnet: bool, kernel
             fail(f"{kname} launched {n} times in the {name} {stage} run, whose encoder is not PointNet")
 
 
-def phase_train(work: str, name: str, config: str, opts, prefix: str, pointnet: bool) -> dict:
+def checkpoints(total: int):
+    return (f"model_{total // 2}", f"model_{total}", "model_final")
+
+
+def phase_train(work: str, name: str, config: str, opts, prefix: str, pointnet: bool, total: int) -> dict:
     """Train, evaluate and auto-resume one run; returns its summary."""
     root = osp.join(work, name)
     wd = osp.join(root, "0")  # run_rl appends the seed to --work-dir
     common = ["--work-dir", root, "--seed", "0", "--device", "cuda"]
     opts = list(opts) + ["train_cfg.warm_steps=512", "train_cfg.exp_logger_cfg.type=csv", "train_cfg.n_log=500",
-                         "train_cfg.n_checkpoint=1500", "eval_cfg.save_video=False", "eval_cfg.num=2"]
-    run_cli(config, common + ["--cfg-options", *opts, "train_cfg.total_steps=3000"],
+                         f"train_cfg.n_checkpoint={total // 2}", "eval_cfg.save_video=False", "eval_cfg.num=2"]
+    run_cli(config, common + ["--cfg-options", *opts, f"train_cfg.total_steps={total}"],
             osp.join(work, f"{name}_train.log"), timeout=420)
     summary = read_summary(wd)
     if not summary["device"].startswith("cuda"):
         fail(f"{name} ran on {summary['device']}")
     check_launches(name, "training", summary["launches"], pointnet, TPU_KERNELS)
-    for ckpt in ("model_1500", "model_3000", "model_final"):
+    for ckpt in checkpoints(total):
         if not osp.isfile(osp.join(wd, "models", ckpt)):
             fail(f"{name}: checkpoint {ckpt} missing")
     rows = read_metrics(osp.join(wd, "logs", "metrics.csv"))
@@ -471,28 +498,40 @@ def phase_train(work: str, name: str, config: str, opts, prefix: str, pointnet: 
     check_launches(name, "evaluation", ev["launches"], pointnet, ["pointnet_fused_fwd_max"])
     print(f"[{name}] eval from model_final: {ev['eval']}", flush=True)
 
-    run_cli(config, common + ["--auto-resume", "--cfg-options", *opts, "train_cfg.total_steps=3200"],
+    # a cold resume refills min(warm-up, 200) = 200 steps with the policy
+    # first: 50 per env worker, one whole 50-step episode each, so the
+    # recurrent run has windows to draw
+    run_cli(config, common + ["--auto-resume", "--cfg-options", *opts, f"train_cfg.total_steps={total + 200}"],
             osp.join(work, f"{name}_resume.log"), timeout=180)
     rs = read_summary(wd)
-    if rs["resume_steps"] != 3000 or rs["steps"] != 3200:
-        fail(f"{name}: auto-resume went from {rs['resume_steps']} to {rs['steps']}, expected 3000 -> 3200")
-    print(f"[{name}] auto-resume: model_3000 -> {rs['steps']} env steps", flush=True)
+    if rs["resume_steps"] != total or rs["steps"] != total + 200:
+        fail(f"{name}: auto-resume went from {rs['resume_steps']} to {rs['steps']}, expected {total} -> {total + 200}")
+    print(f"[{name}] auto-resume: model_{total} -> {rs['steps']} env steps", flush=True)
     summary["models_dir"] = osp.join(wd, "models")
     return summary
 
 
-def phase_reference(name: str, config: str, opts, models_dir: str, atol: float) -> float:
-    """Each checkpoint of the run on the card (fused kernel) against the
-    same checkpoint on the CPU (plain PyTorch body): eval-mode actions on
-    ``REF_OBS`` of the environment's own observations."""
+def env_frames(env_cfg: dict, n: int, seed: int) -> dict:
+    """``n`` observations of the environment under random actions, stacked."""
     import numpy as np
 
-    from pointcloud_rl_torch.algorithms import build_agent
-    from pointcloud_rl_torch.apis.run_rl import load_config, resolve_agent_placeholders
-    from pointcloud_rl_torch.env import build_env, get_env_info
-    from pointcloud_rl_torch.utils.checkpoint import load_checkpoint
+    from pointcloud_rl_torch.env import build_env
 
+    env = build_env(env_cfg)
+    env.seed(seed)
+    frames = [env.reset()]
+    while len(frames) < n:
+        o, _, done, _ = env.step(env.action_space.sample())
+        frames.append(env.reset() if done else o)
+    env.close()
+    return {k: np.stack([f[k] for f in frames]) for k in frames[0]}
+
+
+def resolved_agent_cfg(config: str, opts):
+    """(agent config with the run's ``agent_cfg.`` options, env info, env config)."""
+    from pointcloud_rl_torch.apis.run_rl import load_config, resolve_agent_placeholders
     from pointcloud_rl_torch.config import DictAction
+    from pointcloud_rl_torch.env import get_env_info
 
     agent_opts = {k: DictAction._parse_value(v) for k, v in (o.split("=", 1) for o in opts)
                   if k.startswith("agent_cfg.")}
@@ -500,28 +539,52 @@ def phase_reference(name: str, config: str, opts, models_dir: str, atol: float) 
     env_cfg = dict(cfg["env_cfg"])
     info = get_env_info(env_cfg)
     resolve_agent_placeholders(cfg, info)
-    agent_cfg = dict(cfg["agent_cfg"])
-    env = build_env(env_cfg)
-    env.seed(1)
-    frames = [env.reset()]
-    while len(frames) < REF_OBS:
-        o, _, done, _ = env.step(env.action_space.sample())
-        frames.append(env.reset() if done else o)
-    obs = {k: np.stack([f[k] for f in frames]) for k in frames[0]}
+    return dict(cfg["agent_cfg"]), info, env_cfg
+
+
+def eval_actions(agent, obs):
+    """Eval-mode actions on ``obs``; a recurrent agent takes them as steps
+    of ``REF_ENVS`` envs, its state threaded and reset for envs 0 and 2
+    after the fourth step."""
+    import numpy as np
+
+    if not agent.model.is_recurrent:
+        return agent.forward(obs, mode="eval")
+    agent.reset_rnn_states()
+    acts = []
+    for t in range(REF_OBS // REF_ENVS):
+        acts.append(agent.forward({k: v[t * REF_ENVS:(t + 1) * REF_ENVS] for k, v in obs.items()}, mode="eval"))
+        if t == 3:
+            agent.reset_rnn_states(np.array([[True], [False], [True], [False]]))
+    return np.concatenate(acts)
+
+
+def phase_reference(name: str, config: str, opts, models_dir: str, atol: float, total: int) -> float:
+    """Each checkpoint of the run on the card (fused kernel) against the
+    same checkpoint on the CPU (plain PyTorch body): eval-mode actions on
+    ``REF_OBS`` of the environment's own observations."""
+    import numpy as np
+
+    from pointcloud_rl_torch.algorithms import build_agent
+    from pointcloud_rl_torch.utils.checkpoint import load_checkpoint
+
+    agent_cfg, info, env_cfg = resolved_agent_cfg(config, opts)
+    obs = env_frames(env_cfg, REF_OBS, seed=1)
     agents = {device: build_agent(dict(agent_cfg, env_params=info, seed=0, device=device))
               for device in ("cuda", "cpu")}
     worst = 0.0
-    for ckpt in REF_CHECKPOINTS:
+    for ckpt in checkpoints(total):
         acts = {}
         for device, agent in agents.items():
             agent.load_state_dict(load_checkpoint(osp.join(models_dir, ckpt), device))
-            acts[device] = agent.forward(obs, mode="eval")
+            acts[device] = eval_actions(agent, obs)
         diff = np.abs(acts["cuda"] - acts["cpu"])
         if acts["cuda"].shape != (REF_OBS, info["action_shape"]) or not np.isfinite(acts["cuda"]).all():
             fail(f"actions of shape {acts['cuda'].shape} from {ckpt}")
         err = float(diff.max())
+        how = f"{REF_OBS // REF_ENVS} steps of {REF_ENVS} envs" if agents["cpu"].model.is_recurrent else "one batch"
         print(f"[reference] {name} {ckpt}: card (kernel) vs CPU (plain) eval actions on {REF_OBS} env "
-              f"observations: max abs diff {err:.3e} (limit {atol}); {int((diff > FLIP_ABS).sum())} of "
+              f"observations ({how}): max abs diff {err:.3e} (limit {atol}); {int((diff > FLIP_ABS).sum())} of "
               f"{diff.size} elements differ by more than {FLIP_ABS}", flush=True)
         if err > atol:
             fail(f"{name} {ckpt}: card vs CPU eval actions differ by {err:.3e} > {atol}")
@@ -590,16 +653,9 @@ def encoder_inputs(kind, B: int) -> dict:
         g = torch.Generator().manual_seed(5)
         return {"rgb": torch.randint(0, 256, (B, c, hw, hw), generator=g, dtype=torch.uint8)}
     from pointcloud_rl_torch.config import Config
-    from pointcloud_rl_torch.env import build_env
 
-    env = build_env(dict(Config.fromfile(osp.join(REPO, VOXEL_CONFIG))["env_cfg"]))
-    env.seed(2)
-    frames = [env.reset()]
-    while len(frames) < B:
-        o, _, done, _ = env.step(env.action_space.sample())
-        frames.append(env.reset() if done else o)
-    env.close()
-    obs = {k: np.stack([f[k] for f in frames]) for k in ("xyz", "rgb", "seg")}
+    obs = env_frames(dict(Config.fromfile(osp.join(REPO, VOXEL_CONFIG))["env_cfg"]), B, seed=2)
+    obs = {k: obs[k] for k in ("xyz", "rgb", "seg")}
     if kind == "lattice_cloud":
         half = obs["xyz"].shape[-1] // 2
         xyz = np.round(obs["xyz"][..., :half] * 64) / 64
@@ -720,6 +776,184 @@ def phase_encoders(card: str) -> list:
     return results
 
 
+# Phase 7.  The GRU at the recurrent update's windows: 64 x (8 + 1) steps
+# of the PointNet feature (128) and the robot state (32).
+GRU_SHAPE = (64, 9, 160)
+GRU_HIDDEN = 128
+# Card vs CPU after one update (or six optimizer steps) from one state:
+# where a gradient element is ~0, f32 noise can flip the sign of Adam's
+# first bias-corrected step (+-lr whatever |g|), so an element may differ
+# by up to 2 lr; a fault moves most elements (tests/test_torch_sac.py).
+UPDATE_METRIC_RTOL = 1e-3
+OPTIMIZER_TOL = (1e-5, 1e-6)  # (rtol, atol): six steps of f32 elementwise updates
+DISCRETE_CFG = dict(  # discrete SAC on a flat state (no env of the repo's configs is discrete)
+    type="SAC", batch_size=256, env_params=dict(is_discrete=True, obs_shape=32, action_shape=6, action_space=None),
+    actor_cfg=dict(type="DiscreteActor", head_cfg=dict(type="DiscreteBaseHead"),
+                   nn_cfg=dict(type="LinearMLP", norm_cfg=None, mlp_spec=[32, 1024, 1024, 6], inactivated_output=True),
+                   optim_cfg=dict(type="Adam", lr=1e-3)),
+    critic_cfg=dict(type="DiscreteCritic", num_heads=2,
+                    nn_cfg=dict(type="LinearMLP", norm_cfg=None, mlp_spec=[32, 1024, 1024, 6],
+                                inactivated_output=True),
+                    optim_cfg=dict(type="Adam", lr=1e-3)),
+)
+OPTIMIZERS = {
+    "adam": dict(type="Adam", lr=1e-3, betas=(0.5, 0.999)),
+    "adam_weight_decay": dict(type="Adam", lr=1e-3, weight_decay=0.1),
+    "adamw": dict(type="AdamW", lr=1e-3, weight_decay=0.05),
+    "sgd_nesterov": dict(type="SGD", lr=0.05, momentum=0.9, nesterov=True),
+    "sgd": dict(type="SGD", lr=0.05),
+    "rmsprop": dict(type="RMSprop", lr=1e-3, momentum=0.5),
+    "adam_clipped": dict(type="Adam", lr=1e-3, max_grad_norm=1.0),
+}
+
+
+def compare_agents(name: str, cpu_agent, gpu_agent, cpu_metrics: dict, gpu_metrics: dict, lr: float) -> dict:
+    """Metrics of one update to UPDATE_METRIC_RTOL; every parameter inside
+    the Adam envelope and >90% of each tensor's elements within 1e-4."""
+    for key, want in cpu_metrics.items():
+        got = gpu_metrics[key]
+        if not math.isfinite(got) or abs(got - want) > UPDATE_METRIC_RTOL * (1 + abs(want)):
+            fail(f"{name}: {key} card {got} vs CPU {want}")
+    envelope, worst, tight = 2 * lr * 1.01, 0.0, 1.0
+    for which in ("model", "target"):
+        gpu_sd = getattr(gpu_agent, which).state_dict()
+        for pname, want in getattr(cpu_agent, which).state_dict().items():
+            diff = (gpu_sd[pname].cpu() - want).abs()
+            share = float((diff < 1e-4).float().mean())
+            if float(diff.max()) > envelope or share <= 0.9:
+                fail(f"{name}: {which}.{pname} card vs CPU max diff {float(diff.max()):.3e}, {share:.2%} tight")
+            worst, tight = max(worst, float(diff.max())), min(tight, share)
+    return {"name": name, "metrics_checked": len(cpu_metrics), "param_max_abs_diff": worst,
+            "least_tight_share": tight}
+
+
+def twin_agents(cfg: dict):
+    """The same agent on the CPU and on the card, from one state dict."""
+    from pointcloud_rl_torch.algorithms import build_agent
+
+    cpu = build_agent(dict(cfg, seed=0, device="cpu"))
+    gpu = build_agent(dict(cfg, seed=0, device="cuda"))
+    gpu.load_state_dict({k: v for k, v in cpu.state_dict().items() if not k.startswith("generator")})
+    return cpu, gpu
+
+
+class _Batch:
+    """A memory whose ``sample`` returns one fixed host batch."""
+
+    def __init__(self, batch):
+        self.batch = batch
+
+    def sample(self, batch_size):
+        return dict(self.batch)
+
+
+def phase_modules(card: str) -> list:
+    import copy
+
+    import numpy as np
+    import torch
+
+    from pointcloud_rl_torch.algorithms import ddpg as ddpg_mod
+    from pointcloud_rl_torch.algorithms.optim import Optimizer
+    from pointcloud_rl_torch.models import build_all
+
+    results = []
+    # -- the GRU, forward and backward, card vs CPU, and its time on the card
+    B, T, D = GRU_SHAPE
+    g = torch.Generator().manual_seed(7)
+    cpu_gru = build_all(dict(type="GRU", hidden_size=GRU_HIDDEN, in_features=D), generator=g)
+    gru = copy.deepcopy(cpu_gru).cuda()
+    x, w = torch.randn((B, T, D), generator=g), torch.randn((B, T, GRU_HIDDEN), generator=g)
+    xc, xg = x.clone().requires_grad_(True), x.cuda().requires_grad_(True)
+    want = cpu_gru(xc)
+    (want * w).sum().backward()
+    got = gru(xg)
+    (got * w.cuda()).sum().backward()
+    atol, rtol, grad_rtol = ENC_TOL
+    err = check_close("GRU forward, card vs CPU", got.detach().cpu(), want.detach(), atol, rtol)
+    worst = 0.0
+    for (pname, a), b in zip([("input", xg)] + list(gru.named_parameters()), [xc] + list(cpu_gru.parameters())):
+        rel = float((a.grad.cpu() - b.grad).abs().max()) / (float(b.grad.abs().max()) + 1e-12)
+        if not math.isfinite(rel) or rel > grad_rtol:
+            fail(f"GRU gradient of {pname}: card vs CPU max-err/scale {rel:.3e} > {grad_rtol}")
+        worst = max(worst, rel)
+    xg = x.cuda()
+    wg = w.cuda()
+
+    def fwd_bwd():
+        gru.zero_grad(set_to_none=True)
+        (gru(xg) * wg).sum().backward()
+
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: gru(xg), iters=20)
+    step_ms = time_ms(fwd_bwd, iters=20)
+    flop = 2 * B * T * 3 * (D + GRU_HIDDEN) * GRU_HIDDEN  # six products per step
+    results.append({"name": "gru", "shape": list(GRU_SHAPE), "hidden": GRU_HIDDEN, "max_abs_err": err,
+                    "grad_max_err_over_scale": worst, "fwd_ms": fwd_ms, "fwd_bwd_ms": step_ms, "fwd_flop": flop,
+                    "fwd_bound_f32_ms": 1e3 * flop / PEAK_F32})
+    print(f"[modules] GRU {list(GRU_SHAPE)} -> {GRU_HIDDEN}: card vs CPU forward max abs err {err:.3e}, gradients "
+          f"max-err/scale {worst:.3e}; fwd {fwd_ms:.3f} ms, fwd+bwd {step_ms:.3f} ms ({flop:.3e} FLOP fwd, f32 bound "
+          f"{1e3 * flop / PEAK_F32:.4f} ms) on {card}", flush=True)
+    del cpu_gru, gru
+
+    # -- one discrete-SAC update at batch 256 (its update draws nothing)
+    rs = np.random.RandomState(8)
+    n = DISCRETE_CFG["batch_size"]
+    batch = dict(obs=rs.randn(n, 32).astype(np.float32), next_obs=rs.randn(n, 32).astype(np.float32),
+                 actions=rs.randint(0, 6, (n, 1)), rewards=rs.randn(n, 1).astype(np.float32),
+                 dones=rs.rand(n, 1) < 0.1, episode_dones=np.zeros((n, 1), bool))
+    cpu, gpu = twin_agents(DISCRETE_CFG)
+    rec = compare_agents("discrete_sac", cpu, gpu, cpu.update_parameters(_Batch(batch), 0),
+                         gpu.update_parameters(_Batch(batch), 0), lr=1e-3)
+    results.append(rec)
+    print(f"[modules] discrete SAC update, batch {n}, card vs CPU: {rec}", flush=True)
+
+    # -- one DDPG update at the SAC config's full width, on env observations,
+    # TD3's smoothing noise injected on both sides
+    agent_cfg, info, env_cfg = resolved_agent_cfg(SLICE_CONFIG, [FUSED, "agent_cfg.type=DDPG"])
+    n = agent_cfg["batch_size"]
+    frames = env_frames(env_cfg, 2 * n, seed=3)
+    batch = dict(obs={k: v[:n] for k, v in frames.items()}, next_obs={k: v[n:] for k, v in frames.items()},
+                 actions=rs.uniform(-1, 1, (n, info["action_shape"])).astype(np.float32),
+                 rewards=rs.randn(n, 1).astype(np.float32), dones=rs.rand(n, 1) < 0.1,
+                 episode_dones=np.zeros((n, 1), bool))
+    noise = torch.randn((n, info["action_shape"]), generator=torch.Generator().manual_seed(9))
+    draw = ddpg_mod.standard_normal
+    ddpg_mod.standard_normal = lambda like, generator: noise.to(like.device)
+    try:
+        cpu, gpu = twin_agents(dict(agent_cfg, env_params=info))
+        rec = compare_agents("ddpg", cpu, gpu, cpu.update_parameters(_Batch(batch), 0),
+                             gpu.update_parameters(_Batch(batch), 0), lr=1e-3)
+    finally:
+        ddpg_mod.standard_normal = draw
+    results.append(rec)
+    print(f"[modules] DDPG update, batch {n} x 1200 x 8 (fused kernel on the card), card vs CPU: {rec}", flush=True)
+    del cpu, gpu
+
+    # -- six steps of each optimizer branch
+    shapes = [(1024, 160), (1024,), (6, 1024)]
+    for oname, ocfg in OPTIMIZERS.items():
+        g = torch.Generator().manual_seed(10)
+        init = [torch.randn(sh, generator=g) for sh in shapes]
+        grads = [[torch.randn(sh, generator=g) * (3.0 if step % 2 else 0.1) for sh in shapes] for step in range(6)]
+        out = {}
+        for device in ("cpu", "cuda"):
+            params = [p.clone().to(device) for p in init]
+            opt = Optimizer(dict(ocfg), [(f"p{i}", p) for i, p in enumerate(params)])
+            for step_grads in grads:
+                opt.step([gr.to(device) for gr in step_grads])
+            out[device] = params
+        worst = 0.0
+        for a, b in zip(out["cuda"], out["cpu"]):
+            worst = max(worst, check_close(f"optimizer {oname}, card vs CPU", a.cpu(), b,
+                                           OPTIMIZER_TOL[1], OPTIMIZER_TOL[0]))
+        results.append({"name": f"optimizer_{oname}", "steps": 6, "max_abs_err": worst})
+    print(f"[modules] optimizers {sorted(OPTIMIZERS)}: 6 steps card vs CPU, max abs err "
+          f"{max(r['max_abs_err'] for r in results if r['name'].startswith('optimizer_')):.3e}", flush=True)
+    print(json.dumps({"modules": results}), flush=True)
+    return results
+
+
 def main() -> int:
     if not osp.isdir(osp.join(REPO, "pointcloud_rl_torch")):
         fail(f"the port's package is not beside {__file__}; run from a checkout of the repo")
@@ -755,15 +989,17 @@ def main() -> int:
         work = tempfile.mkdtemp(prefix="chip_smoke_", dir=osp.join(REPO, "build"))
         summaries = {}
         try:
-            for name, config, opts, prefix, pointnet in RUNS:
-                summaries[name] = summary = phase_train(work, name, config, opts, prefix, pointnet)
+            for name, config, opts, prefix, pointnet, total in RUNS:
+                t_run = time.monotonic()
+                summaries[name] = summary = phase_train(work, name, config, opts, prefix, pointnet, total)
                 replay = summary["replay"]
                 if name == "drq_device" and not (replay["type"] == "DeviceReplayMemory"
                                                  and replay["device"].startswith("cuda")
                                                  and replay["storage_bytes"] > 0):
                     fail(f"drq_device: the replay is {replay}, not a DeviceReplayMemory on cuda")
                 phase_reference(name, config, opts, summary["models_dir"],
-                                ACTION_ATOL_BF16 if "agent_cfg.bf16=True" in opts else ACTION_ATOL)
+                                ACTION_ATOL_BF16 if "agent_cfg.bf16=True" in opts else ACTION_ATOL, total)
+                print(f"[time] run {name}: {time.monotonic() - t_run:.1f} s", flush=True)
         finally:
             keep = osp.join(REPO, "build", "chip_smoke_logs")
             shutil.rmtree(keep, ignore_errors=True)
@@ -778,6 +1014,8 @@ def main() -> int:
         print(f"[time] through the training runs: {time.monotonic() - t0:.1f} s", flush=True)
         phase_encoders(f"{kind} ({smi})")
         print(f"[time] through the encoder phase: {time.monotonic() - t0:.1f} s", flush=True)
+        phase_modules(f"{kind} ({smi})")
+        print(f"[time] through the module phase: {time.monotonic() - t0:.1f} s", flush=True)
 
     kernels = []
     for kname, rec in report.items():
@@ -791,7 +1029,8 @@ def main() -> int:
             "bound_formula": BOUND_FORMULA, "share_of_bound": slice_t["bound_ms"] / slice_t["ms"],
             "library_ms": None,  # no single PyTorch call computes body + LayerNorm + max-pool
             "launches_by_run": {name: run[kname] for name, run in by_run.items()},
-            **{f"{shape}_{key}": shp[shape][key] for shape in ("drq_f32", "drq_bf16", "act_f32", "act_bf16")
+            **{f"{shape}_{key}": shp[shape][key]
+               for shape in ("drq_f32", "drq_bf16", "rnn_target_f32", "act_f32", "act_bf16")
                for key in ("ms", "plain_ms", "bound_ms")},
             "walker_f32_ms": shp["walker_f32"]["ms"],
             "walker_bf16_ms": shp["walker_bf16"]["ms"],

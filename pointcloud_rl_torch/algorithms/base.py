@@ -43,6 +43,7 @@ class BaseAgent:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' was asked for, but torch.cuda.is_available() is false")
         self.modules: Dict[str, torch.nn.Module] = {}
+        self._rnn_states = None  # a recurrent agent's per-env state [B, L, H], threaded through act
 
     def train(self):
         for m in self.modules.values():
@@ -61,6 +62,17 @@ class BaseAgent:
     def forward(self, obs, mode: str = "explore", **kwargs) -> np.ndarray:
         """obs (numpy tree, batched) -> actions (numpy [B, A])."""
         return self.act(to_torch(obs, self.device), mode).cpu().numpy()
+
+    def reset_rnn_states(self, dones=None) -> None:
+        """Zero the recurrent states: all of them, or the rows of the envs
+        whose ``dones`` ([B, 1]) are set."""
+        if self._rnn_states is None:
+            return
+        if dones is None:
+            self._rnn_states = None
+        else:
+            keep = 1.0 - torch.as_tensor(np.asarray(dones, np.float32)).reshape(-1, 1, 1)
+            self._rnn_states = self._rnn_states * keep.to(self._rnn_states.device)
 
     def __call__(self, obs, mode: str = "explore", **kwargs):
         return self.forward(obs, mode=mode, **kwargs)

@@ -1,6 +1,8 @@
 """Optimizers with per-parameter regex config, and the per-path EMA.
 
-Port of ``pointcloud_rl_tpu/algorithms/optim.py``.  ``optim_cfg`` dicts like
+Port of ``pointcloud_rl_tpu/algorithms/optim.py`` (Adam, AdamW, SGD,
+RMSprop, each stepping as its optax counterpart; ``max_grad_norm``
+clipping).  ``optim_cfg`` dicts like
 ``dict(type="Adam", lr=1e-3, betas=(0.5, 0.999), param_cfg={"(.*?)visual_nn(.*?)":
 None})``: a ``None`` value EXCLUDES the matching parameters, which then get
 no update and no Adam state.  Regexes match the same slash-joined paths as
@@ -27,10 +29,59 @@ def _first_match(patterns: Dict[str, object], path: str):
     return False, None
 
 
+class OptaxRMSprop(torch.optim.Optimizer):
+    """``optax.rmsprop(lr, decay=0.9, eps, momentum)``, which
+    ``torch.optim.RMSprop`` is not: optax divides by ``sqrt(nu + eps)``
+    (eps inside the root) and starts ``nu`` at 0 with decay 0.9.  Then
+    ``optax.trace(momentum)`` over the scaled gradients, then ``-lr``."""
+
+    def __init__(self, params, lr: float, decay: float = 0.9, eps: float = 1e-8, momentum: float = 0.0):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps, momentum=momentum))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            decay, eps, momentum = group["decay"], group["eps"], group["momentum"]
+            for p in group["params"]:
+                state = self.state[p]
+                if not state:
+                    state["nu"] = torch.zeros_like(p)
+                    if momentum:
+                        state["trace"] = torch.zeros_like(p)
+                g = p.grad
+                state["nu"] = (1 - decay) * g.square() + decay * state["nu"]
+                u = g * torch.rsqrt(state["nu"] + eps)
+                if momentum:
+                    state["trace"] = u + momentum * state["trace"]
+                    u = state["trace"]
+                p.add_(u * -group["lr"])
+
+
+def _torch_optimizer(kind: str, params: List[torch.Tensor], lr: float, betas, eps: float, weight_decay: float,
+                     cfg: dict) -> torch.optim.Optimizer:
+    """The branch of the JAX ``make_optimizer`` that ``kind`` names.
+    ``Adam`` with ``weight_decay`` is ``optax.adamw``: the decay multiplies
+    the pre-step parameter, as ``torch.optim.AdamW`` does."""
+    kind = kind.lower()
+    if kind in ("adam", "adamw"):
+        if kind == "adamw" or weight_decay:
+            return torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps, weight_decay=weight_decay)
+        # torch Adam's step is optax.adam's: lr * m_hat / (sqrt(v_hat) + eps)
+        return torch.optim.Adam(params, lr=lr, betas=betas, eps=eps)
+    if kind == "sgd":
+        # optax.trace starts at 0, so its first step is g, as torch's buffer
+        return torch.optim.SGD(params, lr=lr, momentum=cfg.pop("momentum", 0.0),
+                               nesterov=cfg.pop("nesterov", False))
+    if kind == "rmsprop":
+        return OptaxRMSprop(params, lr=lr, eps=eps, momentum=cfg.pop("momentum", 0.0))
+    raise KeyError(f"Unknown optimizer type {kind}")
+
+
 class Optimizer:
-    """Adam over the parameters a config trains (the only optimizer the
-    shipped configs use; the JAX package's SGD/RMSprop, weight decay and
-    gradient clipping raise here)."""
+    """The optimizer a config names (Adam, AdamW, SGD, RMSprop, each as its
+    optax counterpart), over the parameters the config trains, with
+    optional global-norm clipping (``max_grad_norm``) of their gradients
+    before the step."""
 
     def __init__(self, optim_cfg: Optional[dict], named_params: NamedParams):
         cfg = dict(optim_cfg or {"type": "Adam", "lr": 3e-4})
@@ -38,10 +89,9 @@ class Optimizer:
         lr = cfg.pop("lr", 3e-4)
         betas = tuple(cfg.pop("betas", (0.9, 0.999)))
         eps = cfg.pop("eps", 1e-8)
+        weight_decay = cfg.pop("weight_decay", 0.0)
         param_cfg = cfg.pop("param_cfg", None) or {}
-        if kind.lower() != "adam" or cfg:
-            raise NotImplementedError(f"optimizer {kind!r} with {sorted(cfg)} is not ported to "
-                                      "pointcloud_rl_torch (only Adam with lr, betas, eps, param_cfg)")
+        self.max_grad_norm = cfg.pop("max_grad_norm", None)
         self.names: List[str] = []
         self.params: List[torch.Tensor] = []
         for name, p in named_params:
@@ -50,16 +100,25 @@ class Optimizer:
                 continue
             self.names.append(name)
             self.params.append(p)
-        # torch Adam's step is optax.adam's: lr * m_hat / (sqrt(v_hat) + eps)
-        self.opt = torch.optim.Adam(self.params, lr=lr, betas=betas, eps=eps) if self.params else None
+        self.opt = (_torch_optimizer(kind, self.params, lr, betas, eps, weight_decay, cfg)
+                    if self.params else None)
+        if cfg:
+            raise NotImplementedError(f"optimizer {kind!r}: options {sorted(cfg)} are not ported to "
+                                      "pointcloud_rl_torch")
 
     def step(self, grads: Sequence[Optional[torch.Tensor]]) -> None:
         """One step with ``grads`` aligned to ``self.params`` (None = zero,
         as a leaf without a gradient gets a zero update from optax)."""
         if self.opt is None:
             return
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
+        if self.max_grad_norm is not None:
+            # optax.clip_by_global_norm: g / |g| * max_norm unless |g| < max_norm
+            g_norm = global_grad_norm(grads)
+            keep = g_norm < self.max_grad_norm
+            grads = [torch.where(keep, g, g / g_norm * self.max_grad_norm) for g in grads]
         for p, g in zip(self.params, grads):
-            p.grad = torch.zeros_like(p) if g is None else g
+            p.grad = g
         self.opt.step()
         for p in self.params:
             p.grad = None

@@ -13,8 +13,11 @@ differ only in their leaf:
     ``bias``                               <->  ``bias``
 
 ``params_from_jax`` turns the JAX agent's parameter trees (nested dicts of
-numpy arrays) into a state dict for the port's SAC agent; optimizer state
-does not come across.
+numpy arrays) into a state dict for the port's SAC agent (and its
+subclasses); optimizer state does not come across.  The GRU's six Dense
+layers per cell (``rnn.layer_0.ir``, ...), the DDPG target actor
+(``target.actor...``) and the heads' own parameters (``log_std``,
+``log_var_min``/``log_var_max``, kept as they are) follow the same rules.
 """
 
 from __future__ import annotations

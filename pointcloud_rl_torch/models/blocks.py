@@ -185,8 +185,9 @@ class MLP(nn.Module):
 
     def forward(self, x):
         assert x.shape[-1] == self.spec[0], f"MLP input dim {x.shape[-1]} != spec[0] {self.spec[0]}"
+        lead = x.shape[:-1]
         if self.num_heads is not None:
-            x = x.expand(self.num_heads, *x.shape)  # [heads, B, D]
+            x = x.reshape(-1, x.shape[-1]).expand(self.num_heads, -1, -1)  # [heads, rows, D]
         for layer, norm, act in self.plan:
             x = dense(getattr(self, layer), x, self.compute_dtype)
             if norm is not None:
@@ -194,7 +195,7 @@ class MLP(nn.Module):
             if act is not None:
                 x = act(x)
         if self.num_heads is not None:
-            x = x.movedim(0, -2)  # [B, heads, out]
+            x = x.movedim(0, -2).reshape(*lead, self.num_heads, -1)  # [..., heads, out]
         return x.float()
 
 

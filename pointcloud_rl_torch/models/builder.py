@@ -2,8 +2,11 @@
 
 Port of ``pointcloud_rl_tpu/models/builder.py``: with a shared backbone
 the critic's visual config is discarded and both read ``model.visual``;
-otherwise the critic builds its own encoder.  Every module draws its
-initial weights from one ``torch.Generator``, in a fixed order.
+otherwise the critic builds its own encoder.  An ``rnn_cfg`` in the
+actor's nn_cfg adds the recurrent core that actor and critic share;
+discrete action spaces get a categorical head and a Q-table critic.  Every
+module draws its initial weights from one ``torch.Generator``, in a fixed
+order.
 ``bf16=True`` opts every MLP and PointNet config into the bf16 matmul
 path (``dtype="bfloat16"``, unless the config sets its own dtype).
 """
@@ -17,7 +20,7 @@ import numpy as np
 import torch
 
 from . import build_all
-from .actor_critic import ActorCriticModel, ActorHead, CriticEnsemble
+from .actor_critic import ActorCriticModel, ActorHead, CriticEnsemble, split_obs
 from .blocks import MLP
 
 _MLP_TYPES = ("MLP", "LinearMLP", "ConvMLP")
@@ -77,6 +80,19 @@ def extract_freeze_param_cfg(nn_cfg: Optional[dict]) -> dict:
     return out
 
 
+def _rnn_in_features(visual: Optional[torch.nn.Module], obs_shape) -> int:
+    """Width of the rnn's input (the visual feature and the robot state),
+    from one forward of a zero observation, as flax infers it at init."""
+    from ..algorithms.base import example_obs_from_shape
+
+    obs = example_obs_from_shape(obs_shape)
+    obs = {k: torch.as_tensor(v) for k, v in obs.items()} if isinstance(obs, dict) else torch.as_tensor(obs)
+    vis_obs, robot_state = split_obs(obs)
+    with torch.no_grad():
+        feat = visual(vis_obs) if visual is not None else None
+    return int(ActorCriticModel._with_state(feat, robot_state, vis_obs).shape[-1])
+
+
 def build_actor_critic(
     actor_cfg: dict,
     critic_cfg: dict,
@@ -88,34 +104,36 @@ def build_actor_critic(
 ) -> ActorCriticModel:
     """Build the live networks on the CPU; the caller moves them to its device.
     ``bf16=True`` computes the matmuls in bf16; parameters stay f32."""
-    if env_params.get("is_discrete", False):
-        raise NotImplementedError("discrete actions are not ported to pointcloud_rl_torch yet "
-                                  "(ROADMAP.md queue A, item A4)")
     actor_cfg, critic_cfg = deepcopy(dict(actor_cfg)), deepcopy(dict(critic_cfg))
+    is_discrete = bool(env_params.get("is_discrete", False))
     action_shape = env_params.get("action_shape")
     action_space = env_params.get("action_space")
     if shared_target_backbone is None:
         shared_target_backbone = shared_backbone
 
-    actor_cfg.pop("type", "ContinuousActor")
+    actor_type = actor_cfg.pop("type", "ContinuousActor")
     critic_cfg.pop("type", "ContinuousCritic")
     num_q = int(critic_cfg.pop("num_heads", 1))
-    if critic_cfg.pop("share_feature", False):
-        raise NotImplementedError("critic_cfg.share_feature is not ported to pointcloud_rl_torch yet "
-                                  "(ROADMAP.md queue A, item A4)")
+    share_feature = bool(critic_cfg.pop("share_feature", False))
+    average_grad = bool(critic_cfg.pop("average_grad", True))
 
     # ---- actor --------------------------------------------------------
-    if dict(actor_cfg.get("nn_cfg") or {}).get("rnn_cfg"):
-        raise NotImplementedError("recurrent policies are not ported to pointcloud_rl_torch yet "
-                                  "(ROADMAP.md queue A, item A4)")
+    rnn_cfg = dict(actor_cfg.get("nn_cfg") or {}).get("rnn_cfg")
     actor_visual_cfg, actor_mlp_cfg = _split_nn_cfg(actor_cfg.get("nn_cfg"))
     if bf16:
         actor_visual_cfg = _inject_dtype(actor_visual_cfg, "bfloat16")
         actor_mlp_cfg = _inject_dtype(actor_mlp_cfg, "bfloat16")
-    head_cfg = _head_cfg_with_bound(actor_cfg.get("head_cfg"), action_space)
+    head_cfg = _head_cfg_with_bound(actor_cfg.get("head_cfg"), action_space if not is_discrete else None)
     if head_cfg is not None:
-        head_cfg.setdefault("dim_output", int(np.prod(action_shape)))
+        if is_discrete or "Discrete" in str(actor_type):
+            head_cfg.setdefault("num_choices", int(np.prod(action_shape)))
+        else:
+            head_cfg.setdefault("dim_output", int(np.prod(action_shape)))
     visual = build_all(actor_visual_cfg, generator=generator)
+    rnn = None
+    if rnn_cfg:
+        rnn_cfg = dict(rnn_cfg, in_features=_rnn_in_features(visual, env_params["obs_shape"]))
+        rnn = build_all(rnn_cfg, generator=generator)
     final_mlp = MLP(**_mlp_kwargs(actor_mlp_cfg), generator=generator) if actor_mlp_cfg else None
     actor = ActorHead(final_mlp=final_mlp, head=build_all(head_cfg))
 
@@ -140,5 +158,9 @@ def build_actor_critic(
         critic=critic,
         shared_backbone=shared_backbone,
         shared_target_backbone=shared_target_backbone,
+        is_discrete=is_discrete,
         num_q=num_q,
+        share_feature=share_feature,
+        average_grad=average_grad,
+        rnn=rnn,
     )

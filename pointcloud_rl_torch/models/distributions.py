@@ -1,10 +1,12 @@
 """Policy distributions as functions over (mean, std) tensors.
 
-Port of the ScaledTanhNormal part of ``pointcloud_rl_tpu/models/
-distributions.py``: the SAC squashed Gaussian with the reference's
-epsilon-in-log log-prob correction.  Log-probs sum over the last (action)
-axis.  Noise is drawn from an explicit ``torch.Generator`` on the
-tensors' device.
+Port of ``pointcloud_rl_tpu/models/distributions.py``: ScaledTanhNormal
+(the SAC squashed Gaussian with the reference's epsilon-in-log log-prob
+correction), ScaledNormal, and the categorical helpers of discrete SAC.
+Log-probs sum over the last (action) axis.  Every draw comes from an
+explicit ``torch.Generator`` on the tensors' device, through one function
+per kind of draw (``standard_normal``, ``standard_gumbel``), so a test
+can pin the noise by patching the sampler that calls it.
 """
 
 from __future__ import annotations
@@ -13,18 +15,48 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
-
-
-def normal_log_prob(x, mean, std):
-    return -((x - mean) ** 2) / (2 * std * std) - torch.log(std) - _LOG_SQRT_2PI
 
 
 def standard_normal(like: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
     return torch.randn(like.shape, generator=generator, device=like.device, dtype=like.dtype)
 
 
+def standard_gumbel(like: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    u = torch.rand(like.shape, generator=generator, device=like.device, dtype=like.dtype)
+    tiny = torch.finfo(like.dtype).tiny
+    return -torch.log(-torch.log(u.clamp_min(tiny)))
+
+
+def normal_log_prob(x, mean, std):
+    return -((x - mean) ** 2) / (2 * std * std) - torch.log(std) - _LOG_SQRT_2PI
+
+
+def normal_entropy(std):
+    return 0.5 + _LOG_SQRT_2PI + torch.log(std)
+
+
+# ---------------------------------------------------------------------------
+# ScaledNormal: N(mean*scale+bias, std*scale)
+# ---------------------------------------------------------------------------
+def scaled_normal_rsample(generator, mean, std, scale, bias):
+    return mean * scale + bias + std * scale * standard_normal(mean, generator)
+
+
+def scaled_normal_log_prob(x, mean, std, scale, bias):
+    return normal_log_prob(x, mean * scale + bias, std * scale).sum(-1)
+
+
+def scaled_normal_rsample_with_log_prob(generator, mean, std, scale, bias):
+    x = scaled_normal_rsample(generator, mean, std, scale, bias)
+    return x, scaled_normal_log_prob(x, mean, std, scale, bias)
+
+
+# ---------------------------------------------------------------------------
+# ScaledTanhNormal: tanh(N(mean, std)) * scale + bias
+# ---------------------------------------------------------------------------
 def tanh_transform(z, scale, bias):
     return torch.tanh(z) * scale + bias
 
@@ -48,3 +80,33 @@ def tanh_normal_sample(generator, mean, std, scale, bias):
 
 def tanh_normal_mean(mean, scale, bias):
     return tanh_transform(mean, scale, bias)
+
+
+def tanh_normal_log_prob(x, mean, std, scale, bias, epsilon: float = 1e-6):
+    z = torch.atanh(((x - bias) / scale).clamp(-1.0 + 1e-6, 1.0 - 1e-6))
+    return tanh_log_prob_with_logit(z, mean, std, scale, epsilon)
+
+
+# ---------------------------------------------------------------------------
+# Categorical (discrete SAC)
+# ---------------------------------------------------------------------------
+def categorical_sample(generator, logits):
+    """Gumbel-max, as ``jax.random.categorical``."""
+    return (logits + standard_gumbel(logits, generator)).argmax(dim=-1)
+
+
+def categorical_probs(logits):
+    return torch.softmax(logits, dim=-1)
+
+
+def categorical_entropy(logits):
+    logp = F.log_softmax(logits, dim=-1)
+    return -(logp.exp() * logp).sum(-1)
+
+
+def categorical_log_prob(logits, actions):
+    logp = F.log_softmax(logits, dim=-1)
+    actions = actions.long()
+    if actions.dim() == logp.dim():
+        actions = actions[..., 0]
+    return logp.gather(-1, actions[..., None])[..., 0]

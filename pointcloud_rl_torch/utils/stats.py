@@ -38,6 +38,40 @@ class EveryNSteps:
         return (step // self.n) * self.n if self.n else step
 
 
+class RunningMeanStd:
+    """Welford-style running mean/var over batched observations."""
+
+    def __init__(self, shape=(), clip_max: Optional[float] = None, eps: float = 1e-8):
+        self.mean = np.zeros(shape, np.float64)
+        self.var = np.ones(shape, np.float64)
+        self.count = 0.0
+        self.clip_max = clip_max
+        self.eps = eps
+
+    def update(self, x: np.ndarray) -> None:
+        x = np.asarray(x, np.float64)
+        batch_mean = x.mean(axis=0)
+        batch_var = x.var(axis=0)
+        batch_count = x.shape[0]
+        delta = batch_mean - self.mean
+        tot = self.count + batch_count
+        new_mean = self.mean + delta * batch_count / tot
+        m_a = self.var * self.count
+        m_b = batch_var * batch_count
+        m2 = m_a + m_b + delta**2 * self.count * batch_count / tot
+        self.mean, self.var, self.count = new_mean, m2 / tot, tot
+
+    @property
+    def std(self) -> np.ndarray:
+        return np.sqrt(self.var + self.eps)
+
+    def normalize(self, x: np.ndarray) -> np.ndarray:
+        out = (np.asarray(x) - self.mean) / self.std
+        if self.clip_max is not None:
+            out = np.clip(out, -self.clip_max, self.clip_max)
+        return out.astype(np.float32)
+
+
 class EpisodicStatistics:
     """Per-worker running episode returns/lengths with min/mean/max summaries.
 

@@ -24,6 +24,7 @@ sys.path.insert(0, osp.dirname(__file__))
 
 import pytest  # noqa: E402
 from test_torch_models import DRQ_CONFIG, SLICE_CONFIG, TINY_CLI  # noqa: E402
+from test_torch_recurrent import RNN_CLI  # noqa: E402
 from test_torch_voxel_slice import VOXEL_CONFIG, VOXEL_TINY_CLI  # noqa: E402
 
 torch.set_num_threads(1)
@@ -69,9 +70,9 @@ def test_every_module_imports_without_jax(tmp_path):
     out = subprocess.run([sys.executable, "-c", script], env=_env(tmp_path), cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    # every module of the package was imported (60 with the voxel, CNN and
-    # VN encoders and their ops)
-    assert int(out.stdout.split()[-1]) >= 60
+    # every module of the package was imported (63 with the GRU, DDPG and
+    # the schedulers)
+    assert int(out.stdout.split()[-1]) >= 63
 
 
 _FUSED = "agent_cfg.actor_cfg.nn_cfg.visual_nn_cfg.fused=True"
@@ -81,6 +82,10 @@ SLICES = {
                                                        "replay_cfg.transfer_cfg.pack_features=True",
                                                        "agent_cfg.bf16=True"], "drq"),
     "drq_voxel": (VOXEL_CONFIG, VOXEL_TINY_CLI, "drq"),
+    # warm-up past the env's 50-step episodes, so windows can be drawn
+    "sac_rnn": (SLICE_CONFIG, TINY_CLI + [_FUSED] + RNN_CLI + ["agent_cfg.batch_size=8", "train_cfg.warm_steps=112",
+                                                              "train_cfg.total_steps=128"], "sac"),
+    "ddpg": (SLICE_CONFIG, TINY_CLI + [_FUSED, "agent_cfg.type=DDPG"], "ddpg"),
 }
 
 
@@ -89,9 +94,9 @@ def test_slice_trains_without_jax(name, tmp_path):
     config, extra, prefix = SLICES[name]
     wd = tmp_path / "wd"
     cmd = [sys.executable, "-m", "pointcloud_rl_torch.apis.run_rl", config,
-           "--work-dir", str(wd), "--seed", "0", "--device", "cpu", "--cfg-options", *extra, "replay_cfg.capacity=500",
+           "--work-dir", str(wd), "--seed", "0", "--device", "cpu", "--cfg-options", "replay_cfg.capacity=500",
            "train_cfg.total_steps=48", "train_cfg.warm_steps=32", "train_cfg.n_log=16",
-           "train_cfg.exp_logger_cfg.type=csv", "rollout_cfg.num_procs=2", "eval_cfg.num_procs=1"]
+           "train_cfg.exp_logger_cfg.type=csv", "rollout_cfg.num_procs=2", "eval_cfg.num_procs=1", *extra]
     out = subprocess.run(cmd, env=_env(tmp_path), cwd=REPO, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert osp.isfile(wd / "0" / "models" / "model_final")

@@ -30,6 +30,7 @@ REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 SLICE_CONFIG = osp.join(REPO, "configs/mfrl/sac/synthetic/pn_fake_manipulation.py")
 DRQ_CONFIG = osp.join(REPO, "configs/mfrl/drq/synthetic/pn_jitter_fake_manipulation.py")
 VOXEL_CONFIG = osp.join(REPO, "configs/mfrl/drq/synthetic/sparse_conv_shift_fake_manipulation.py")
+RNN_CONFIG = osp.join(REPO, "configs/mfrl/sac/dm_control/pn_rnn.py")
 PORT_SOURCES = sorted(glob.glob(osp.join(REPO, "pointcloud_rl_torch", "**", "*.py"), recursive=True)
                       + [osp.join(REPO, "chip_smoke.py"), osp.join(REPO, "tools", "profile_torch_slice.py"),
                    osp.join(REPO, "tools", "vn_f32_gap.py")])
@@ -72,6 +73,15 @@ def test_registries_are_the_ports_own():
         assert cfg["env_cfg"]["type"] in ENVS
         assert cfg["agent_cfg"]["actor_cfg"]["nn_cfg"]["visual_nn_cfg"]["type"] in NETWORK
     assert TorchConfig.fromfile(DRQ_CONFIG)["agent_cfg"]["obs_aug"]["type"] in AUGMENTATIONS
+    assert TorchConfig.fromfile(RNN_CONFIG)["agent_cfg"]["actor_cfg"]["nn_cfg"]["rnn_cfg"]["type"] in NETWORK
+    # every agent, network and head type of the JAX package has its port
+    from pointcloud_rl_torch.models import REGRESSION
+    from pointcloud_rl_tpu.algorithms import MFRL as JAX_MFRL
+    from pointcloud_rl_tpu.models import NETWORK as JAX_NETWORK
+    from pointcloud_rl_tpu.models import REGRESSION as JAX_REGRESSION
+
+    for ours, theirs in ((MFRL, JAX_MFRL), (NETWORK, JAX_NETWORK), (REGRESSION, JAX_REGRESSION)):
+        assert set(ours.module_dict) == set(theirs.module_dict), ours
     assert {"ReplayMemory", "DeviceReplayMemory"} <= set(REPLAYS.module_dict)
     # every augmentation and replay of the JAX package has its port
     from pointcloud_rl_tpu.env.builder import REPLAYS as JAX_REPLAYS
@@ -81,7 +91,8 @@ def test_registries_are_the_ports_own():
     assert set(REPLAYS.module_dict) >= set(JAX_REPLAYS.module_dict) & {"ReplayMemory", "DeviceReplayMemory"}
 
 
-@pytest.mark.parametrize("path", [SLICE_CONFIG, DRQ_CONFIG, VOXEL_CONFIG], ids=["sac", "drq", "drq_voxel"])
+@pytest.mark.parametrize("path", [SLICE_CONFIG, DRQ_CONFIG, VOXEL_CONFIG, RNN_CONFIG],
+                         ids=["sac", "drq", "drq_voxel", "sac_rnn"])
 def test_config_loads_the_slice_config_like_the_original(path):
     got = TorchConfig.fromfile(path)
     want = JaxConfig.fromfile(path)
@@ -153,3 +164,18 @@ def test_env_worker_close_kills_a_worker_that_ignores_sigterm():
     assert not worker.proc.is_alive()
     assert worker.proc.exitcode == -signal.SIGKILL
     assert time.monotonic() - t0 < 10
+
+
+def test_running_mean_std_is_the_original():
+    from pointcloud_rl_torch.utils.stats import RunningMeanStd as T
+    from pointcloud_rl_tpu.utils.stats import RunningMeanStd as J
+
+    rs = np.random.RandomState(0)
+    t, j = T(shape=(3,), clip_max=2.0), J(shape=(3,), clip_max=2.0)
+    for _ in range(3):
+        x = rs.randn(7, 3) * 4 + 2
+        t.update(x)
+        j.update(x)
+    x = rs.randn(5, 3) * 6
+    np.testing.assert_array_equal(t.normalize(x), j.normalize(x))
+    np.testing.assert_array_equal(t.std, j.std)

@@ -13,6 +13,12 @@
         agent_cfg.bf16=True replay_cfg.capacity=100000
     # DrQ with the voxel encoder (dense 32^3 grid), host replay:
     python3 tools/profile_torch_slice.py --config configs/mfrl/drq/synthetic/sparse_conv_shift_fake_manipulation.py
+    # recurrent SAC (pn_rnn.py's settings: GRU 128, batch 64, windows of 8):
+    python3 tools/profile_torch_slice.py --cfg-options agent_cfg.actor_cfg.nn_cfg.rnn_cfg.type=GRU \
+        agent_cfg.actor_cfg.nn_cfg.rnn_cfg.hidden_size=128 agent_cfg.batch_size=64 \
+        replay_cfg.sampling_cfg.type=TStepTransition replay_cfg.sampling_cfg.horizon=8
+    # DDPG/TD3 on the SAC config:
+    python3 tools/profile_torch_slice.py --cfg-options agent_cfg.type=DDPG
 
 Builds the slice (the config at its full widths, a PointNet with
 ``fused=True``, 4 env workers, its replay: a host replay of ``replay_cfg.capacity=20000`` unless
@@ -26,14 +32,19 @@ exactly as ``run_rl`` does, fills the replay with random steps, then:
 2. Update: ``--updates`` calls of ``agent.update_parameters`` (sampling,
    upload, the SAC or DrQ step): wall ms per update and its parts, each
    timed alone and synchronised (``replay.sample``: a host gather, or a
-   gather on the card; the batch's preparation and upload, nothing to upload
+   gather on the card; a recurrent agent's ``replay.sample_windows``, the
+   host gather of ``[B, H]`` windows, with the bytes of their obs and
+   next_obs; the batch's preparation and upload, nothing to upload
    for a device replay; the step and its metric fetch); then under
    ``torch.profiler``: device busy ms per
    update, the card's idle share, and device ms per update by kernel (the
    fused PointNet kernels summed apart) and by op (``device_by_op``: each
    conv layer's forward, data-gradient and weight-gradient kernels by the
    layer's input shape, the voxelize scatter, grid zeroing, LayerNorm,
-   copies such as permutes, max-pool, the masked max, matmuls).
+   copies such as permutes, max-pool, the masked max, matmuls; a recurrent
+   model's GRU apart: its products and its elementwise kernels, forward and
+   backward, found by a profiler range around the GRU's forward and the
+   autograd sequence numbers of the ops inside it).
 3. Where the encoder has convolutions: the same update with TF32
    convolutions (``ops/conv.ALLOW_TF32``, flipped by this tool only),
    timed and profiled the same way, after 5 updates of warm-up.
@@ -90,21 +101,49 @@ _OP_GROUPS = (
 )
 
 
+GRU_RANGE = "gru"  # the profiler range the tool puts around the GRU's forward
+_BACKWARD = "autograd::engine::evaluate_function"
+
+
+def _gru_part(evt, gru_seq: set):
+    """"gru" if a GRU forward range encloses ``evt``, "gru_bwd" if it runs
+    inside the backward of an op of such a range, else None."""
+    node = evt
+    while node is not None:
+        if node.name == GRU_RANGE:
+            return "gru"
+        if node.name.startswith(_BACKWARD) and getattr(node, "sequence_nr", -1) in gru_seq:
+            return "gru_bwd"
+        node = node.cpu_parent
+    return None
+
+
 def device_by_op(prof, n: int) -> dict:
     """Device ms per iteration, by the aten op that launched each kernel.
     Convolutions are split by layer (the input's shape) and, in the
     backward, into data-gradient (``dgrad``), weight-gradient (``wgrad``)
-    and other kernels by the kernel's name."""
+    and other kernels by the kernel's name.  The GRU's kernels are rows of
+    their own: products (``matmul``) and the rest (``elementwise``), forward
+    and backward."""
     out: dict = {}
+    events = prof.events()
+    gru_seq = {e.sequence_nr for e in events
+               if getattr(e, "sequence_nr", -1) >= 0 and _gru_part(e, set()) == "gru"}
 
     def add(key, us):
         out[key] = out.get(key, 0.0) + us / 1e3 / n
 
-    for evt in prof.events():
+    for evt in events:
         kernels = getattr(evt, "kernels", None)
         if not kernels or "CPU" not in str(evt.device_type):
             continue
         name = evt.name
+        part = _gru_part(evt, gru_seq) if gru_seq else None
+        if part is not None:
+            kind = "matmul" if any(x in name for x in ("mm", "linear", "matmul")) else "elementwise"
+            for k in kernels:
+                add(f"{part}_{kind}", k.duration)
+            continue
         group = next((g for g, subs in _OP_GROUPS if any(x in name for x in subs)), "other")
         shapes = getattr(evt, "input_shapes", None) or []
         for k in kernels:
@@ -179,6 +218,15 @@ def main() -> int:
     try:
         device = torch.device("cuda", 0)
         agent = build_agent(dict(dict(cfg["agent_cfg"]), env_params=info, seed=0, device=device))
+        rnn = agent.model.rnn
+        if rnn is not None:  # a profiler range around each GRU forward
+            rnn_forward = rnn.forward
+
+            def ranged(*a, **kw):
+                with torch.profiler.record_function(GRU_RANGE):
+                    return rnn_forward(*a, **kw)
+
+            rnn.forward = ranged
         replay = build_replay(cfg.get("replay_cfg"), dict(seed=0), device=device)
         rollout.forward_with_policy(None, 1024, replay)  # random warm-up fill
         card = torch.cuda.get_device_name(0)
@@ -218,9 +266,11 @@ def main() -> int:
         torch.cuda.synchronize()
         launches = {k: v / args.updates for k, v in pointnet_fused.launch_counts.items()}
         parts = {"sample_ms": 0.0, "prepare_upload_ms": 0.0, "step_ms": 0.0}
+        horizon = getattr(replay.sampling, "horizon", 8) if rnn is not None else None
         for _ in range(args.updates):
             t0 = time.perf_counter()
-            sample = replay.sample(agent.batch_size)
+            sample = (replay.sample_windows(agent.batch_size, horizon) if rnn is not None
+                      else replay.sample(agent.batch_size))
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             batch = agent._prepare_batch(sample)
@@ -232,7 +282,10 @@ def main() -> int:
             for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
                 parts[k] += dt * 1e3 / args.updates
         first = 11 + 2 * args.updates
-        update = {"launches_per_update": launches, **parts,
+        obs_bytes = sum(int(v.nbytes) for key in ("obs", "next_obs")
+                        for v in (sample[key].values() if isinstance(sample[key], dict) else [sample[key]]))
+        update = {"launches_per_update": launches, **parts, "sample_obs_bytes": obs_bytes,
+                  "sample_shape": [agent.batch_size] + ([horizon] if horizon else []),
                   **time_updates(agent, replay, first, args.updates, acts)}
         tf32 = None
         if visual["type"] in ("SparseCNN", "VoxelCNN", "NatureCNN", "DMCEncoder", "IMPALA"):  # convolutions
