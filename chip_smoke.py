@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py               # all phases, one card
     python3 chip_smoke.py --kernels-only
+    python3 chip_smoke.py --only dmc    # the kernel phase, then only the named phases
+                                        # (runs, encoders, modules, dmc); no result line
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -14,8 +16,9 @@ Phases (any failure exits non-zero and prints no result):
 3. Each kernel against its plain PyTorch version on the same inputs, at the
    training slices' encoder shapes (SAC f32, DrQ f32 and bf16, the
    recurrent target's 64 x 9 windows in f32; the recurrent critic's 64 x 8
-   rows are DrQ's 512), the act encode's (4 env workers, f32 and bf16) and
-   the walker encoder's (f32 and bf16), then at edge shapes (one
+   rows are DrQ's 512), the act encode's (4 env workers, f32 and bf16),
+   the walker encoder's (f32 and bf16) and the walker act's (16 env
+   workers, bf16), then at edge shapes (one
    batch row, one point, ragged tails, widths that are no multiple of 16):
    pooled values, winner indices (the kernel's winner must attain the plain
    max), bitwise-equal repeated calls, a cloud of three copies of the same
@@ -39,7 +42,7 @@ Phases (any failure exits non-zero and prints no result):
    config with ``pn_rnn.py``'s recurrent settings (a GRU of 128 between
    PointNet and the heads, batch 64, ``TStepTransition`` windows of 8 on
    the host replay).  ``ddpg``: DDPG/TD3 on the SAC config.  The DrQ runs
-   take 1500 env steps, the others 3000.  Each run starts a fresh
+   take 1500 env steps, the others 2000.  Each run starts a fresh
    process and resets its kernel launch counts to 0 just before it trains
    or evaluates; it writes them to ``run_summary.json``.  The PointNet runs
    must have launched both kernels in training (and the max-only one in
@@ -72,9 +75,36 @@ Phases (any failure exits non-zero and prints no result):
    discrete-SAC update at batch 256, one DDPG update at the SAC config's
    full width (its noise injected on both), and six steps of each
    optimizer branch; outputs, metrics and parameters must agree.
-8. One JSON line describing the encoders, one describing the modules, one
-   describing the kernels, the card's name and power limit, then the result
-   line ``{"ok": true, "device": {...}}``.
+8. The DMC path's device ops (``dmc-modules``), card vs CPU on the same
+   inputs and the same injected draws at the walker run's size (16 envs x
+   3 frames x 84 x 84 renders of the stand-in below, 512 points per frame
+   of which 128 ground): ``dmc_raw_to_pointcloud`` (xyz within
+   ``XYZ_ATOL``, rgb and frame channel identical, ground/body label flips
+   counted by the ``FLIP_BAND`` rule), ``fuse_camera_pointclouds`` (the
+   three frames as three cameras), ``seg_balanced_downsample`` and
+   ``uniform_downsample`` (indices identical); ms per call on the card.
+9. The DMC walker run (``dmc``), in this process: the agent of
+   ``configs/mfrl/sac/dm_control/pn_walker_tpu.py`` at full width (bf16,
+   fused PointNet [64, 128, 256] -> 50, heads 1024 x 1024, batch 256, the
+   pos_encoding block re-synthesized on the card, a float16 act upload) on
+   a ``DeviceReplayMemory`` of the config's 100000 packed bf16
+   transitions.  The env side is ``WalkerRawStandIn``, defined here only:
+   16 envs (threads) whose raw renders (depth, rgb, camera row, as
+   ``DMCEnv`` ships them in ``obs_mode="raw"``) are ray-cast from a seeded
+   procedural scene, fused on the card by the port's ``ServerObsVectorEnv``
+   (3 frames), collected by the port's ``Rollout`` and pushed, then 16 env
+   steps and 16 ``update_parameters`` per cycle, as ``train_rl`` does, for
+   the config's 1000 warm-up steps and 22 cycles (the last 2 under
+   ``torch.profiler``).  The kernel launch counts are reset just before and
+   read just after; both kernels must have launched.  Updates/s, env
+   steps/s, device busy ms per update and the device's idle share; then the
+   trained agent's eval actions on 32 fused observations, card vs CPU
+   (``ACTION_ATOL_BF16``, flips counted).  dm_control, MuJoCo and EGL are
+   absent from the card's machine, hence the stand-in.
+10. One JSON line describing the encoders, one describing the modules, one
+   each for the DMC modules and the DMC run, one describing the kernels,
+   the card's name and power limit, then the result line
+   ``{"ok": true, "device": {...}}``.
 
 Every time printed here was measured in this run, on the card named in
 phase 1.  The plain versions run with TF32 off
@@ -95,6 +125,8 @@ import sys
 import tempfile
 import time
 
+import numpy as np
+
 REPO = osp.dirname(osp.abspath(__file__))
 SLICE_CONFIG = "configs/mfrl/sac/synthetic/pn_fake_manipulation.py"
 DRQ_CONFIG = "configs/mfrl/drq/synthetic/pn_jitter_fake_manipulation.py"
@@ -107,12 +139,12 @@ RNN_OPTS = ["agent_cfg.actor_cfg.nn_cfg.rnn_cfg.type=GRU", "agent_cfg.actor_cfg.
 # The training runs of phase 4: (name, config, its --cfg-options, metric
 # prefix, whether its encoder is the fused PointNet: the runs that are must
 # launch both kernels, the others neither; env steps, checkpointed at half
-# and at the end).  The DrQ runs are cut to 1500 steps to keep the script
-# inside its time.
+# and at the end).  The DrQ runs are cut to 1500 steps and the others to
+# 2000 to keep the script inside its time.
 RUNS = [
-    ("sac", SLICE_CONFIG, [FUSED, "replay_cfg.capacity=20000"], "sac", True, 3000),
-    ("sac_rnn", SLICE_CONFIG, [FUSED, *RNN_OPTS, "replay_cfg.capacity=20000"], "sac", True, 3000),
-    ("ddpg", SLICE_CONFIG, [FUSED, "agent_cfg.type=DDPG", "replay_cfg.capacity=20000"], "ddpg", True, 3000),
+    ("sac", SLICE_CONFIG, [FUSED, "replay_cfg.capacity=20000"], "sac", True, 2000),
+    ("sac_rnn", SLICE_CONFIG, [FUSED, *RNN_OPTS, "replay_cfg.capacity=20000"], "sac", True, 2000),
+    ("ddpg", SLICE_CONFIG, [FUSED, "agent_cfg.type=DDPG", "replay_cfg.capacity=20000"], "ddpg", True, 2000),
     ("drq_host", DRQ_CONFIG, [FUSED, "replay_cfg.capacity=20000"], "drq", True, 1500),
     ("drq_device", DRQ_CONFIG, [FUSED, "replay_cfg.type=DeviceReplayMemory",
                                 "replay_cfg.transfer_cfg.pack_features=True", "agent_cfg.bf16=True"], "drq", True, 1500),
@@ -127,7 +159,8 @@ TPU_KERNELS = {
 # timed (SAC's and DDPG's update encodes at B=256, DrQ's at 2 x 256 rows
 # in f32 and in bf16, which are also the recurrent critic's 64 x 8 window
 # rows, the recurrent target's 64 x 9, the act encode at 4 env workers in
-# f32 and in bf16, the walker encoder), then edge shapes, checked only.
+# f32 and in bf16, the walker encoder of the dmc run's updates, and its act
+# encode at 16 env workers), then edge shapes, checked only.
 SHAPES = [
     ("slice_f32", 256, 1200, 8, (128, 128, 256), "float32"),
     ("drq_f32", 512, 1200, 8, (128, 128, 256), "float32"),
@@ -137,6 +170,7 @@ SHAPES = [
     ("act_bf16", 4, 1200, 8, (128, 128, 256), "bfloat16"),
     ("walker_f32", 256, 1536, 9, (64, 128, 256), "float32"),
     ("walker_bf16", 256, 1536, 9, (64, 128, 256), "bfloat16"),
+    ("act_walker_bf16", 16, 1536, 9, (64, 128, 256), "bfloat16"),
 ]
 EDGE_SHAPES = [
     ("b1_n1", 1, 1, 8, (128, 128, 256), "float32"),
@@ -954,6 +988,481 @@ def phase_modules(card: str) -> list:
     return results
 
 
+# ---------------------------------------------------------------- the DMC path
+# The walker recipe (``pn_walker_tpu.py`` over ``pn.py``): dmc_walker_walk's
+# defaults (``env/dmc.py``: 384 body + 128 ground points per frame, ground_eps
+# 8e-3, max_depth 5.0, frame_skip 2, 84 x 84 renders from a camera of fovy
+# 45), three stacked frames: xyz / rgb / pos_encoding [3, 1536], action dim 6.
+WALKER_CONFIG = "configs/mfrl/sac/dm_control/pn_walker_tpu.py"
+WALKER = dict(n_points=512, num_ground=128, ground_eps=8e-3, max_depth=5.0, image_size=(84, 84), fovy=45.0,
+              frames=3, action_dim=6, envs=16, frame_skip=2, episode_length=1000)
+DMC_SEED = 0
+DMC_CYCLES = 20  # cycles of 16 env steps and 16 updates, after the config's 1000-step warm-up
+DMC_PROFILED_CYCLES = 2  # more cycles, under torch.profiler: device busy ms and the idle share
+# Module phase.  obs_fuse: the card and the CPU compute each point with the
+# same separately rounded f32 multiplies and adds (``ops/obs_fuse.py``), so
+# xyz should agree bitwise; the limit is 1e-5 absolute.  camera: one einsum,
+# cuBLAS f32 (TF32 off) vs the CPU's, a few ulps of O(5 m) coordinates:
+# 1e-5 absolute.  Sampling and fusion indices, rgb, seg: identical.
+XYZ_ATOL = 1e-5
+# A ground/body label flip between the card and the CPU counts as f32
+# rounding when the point's height lies within this distance of the
+# frame's threshold (a few ulps of the ~1 m heights); a flip farther away
+# is a fault.  Frames with a rounding flip are counted and reported, and
+# compared apart from the rest (their outputs may rightly differ).
+FLIP_BAND = 1e-5
+
+
+class WalkerRawStandIn:
+    """A raw-render stand-in for ``dmc_walker_walk`` in ``obs_mode="raw"``:
+    what ``DMCEnv.get_obs`` ships there (depth ``[1, H, W]`` f32, rgb
+    ``[3, H, W]`` u8, the camera row ``[1, 1, 12]``), ray-cast with numpy from
+    a procedural scene: the ground plane z = 0 seen from a camera pitched 25
+    degrees down that tracks the body, a body of eight spheres (torso,
+    pelvis, two thighs, shins and feet; the feet touch the ground) that the
+    actions and a seeded jitter move, and sky beyond ``max_depth``.  It has
+    the attributes ``ServerObsVectorEnv`` reads.  Nothing in the package
+    uses it; it stands in for dm_control, which the card's machine lacks."""
+
+    SPHERES = np.array([  # x, z offsets from the torso, radius
+        [0.0, 1.15, 0.20], [0.0, 0.85, 0.16], [-0.10, 0.58, 0.11], [0.10, 0.58, 0.11],
+        [-0.12, 0.30, 0.09], [0.12, 0.30, 0.09], [-0.14, 0.07, 0.07], [0.14, 0.07, 0.07]], np.float64)
+
+    def __init__(self, obs_mode="raw", image_size=(84, 84), n_points=512, num_ground=128, ground_eps=8e-3,
+                 max_depth=5.0, fovy=45.0, frame_skip=2, **kwargs):
+        from pointcloud_rl_torch.env.spaces import Box
+
+        assert obs_mode == "raw", obs_mode
+        self.obs_mode = obs_mode
+        self.image_size = np.asarray(image_size)
+        self.n_points, self.num_ground, self.ground_eps = n_points, num_ground, ground_eps
+        self.max_depth, self.frame_skip = max_depth, frame_skip
+        self.z_to_world, self.fix_base_z = True, None
+        self.action_space = Box(-np.ones(6, np.float32), np.ones(6, np.float32))
+        w, h = int(self.image_size[0]), int(self.image_size[1])
+        focal = 0.5 * h / np.tan(fovy * np.pi / 360.0)
+        c = (self.image_size - 1) / 2.0
+        self.inv_intrinsic = np.linalg.inv(np.array([[focal, 0, c[0]], [0, focal, c[1]], [0, 0, 1.0]]))
+        pitch = np.deg2rad(25.0)
+        fwd = np.array([0.0, np.cos(pitch), -np.sin(pitch)])
+        right = np.array([1.0, 0.0, 0.0])
+        self.cam_rot = np.stack([right, np.cross(fwd, right), fwd], axis=1)  # OpenCV camera -> world
+        v, u = np.indices((h, w))
+        uv1 = np.stack([u + 0.5, v + 0.5, np.ones((h, w))], -1).reshape(-1, 3)
+        self._dirs = uv1 @ self.inv_intrinsic.T @ self.cam_rot.T  # world direction per unit depth
+        self.rs = np.random.RandomState(0)
+
+    def seed(self, seed):
+        self.rs = np.random.RandomState(seed)
+        self.action_space.seed(seed)
+
+    def reset(self, **kwargs):
+        self.x = 0.0
+        self.pose = self.rs.uniform(-0.03, 0.03, (8, 2))
+        return self.get_obs()
+
+    def step(self, action):
+        a = np.clip(np.asarray(action, np.float64), -1, 1)
+        x0 = self.x
+        for _ in range(self.frame_skip):
+            self.x += 0.01 * (1.0 + a[0])
+            self.pose = 0.9 * self.pose + 0.02 * np.repeat(a[1:5], 2)[:8, None] + self.rs.normal(0, 0.01, (8, 2))
+        reward = 10.0 * (self.x - x0) - 1e-3 * float(a @ a)
+        return self.get_obs(), reward, False, {}
+
+    def render_ids(self):
+        """Depth per pixel and what it hit: -1 sky, 0 ground, 1 + sphere."""
+        cam = np.array([self.x, -2.2, 1.2])
+        d = self._dirs
+        depth = np.full(len(d), 10.0)
+        hit = np.full(len(d), -1)
+        down = d[:, 2] < 0
+        t = np.where(down, -cam[2] / np.where(down, d[:, 2], -1.0), np.inf)
+        depth = np.where(down, t, depth)
+        hit[down] = 0
+        centres = np.stack([self.x + self.SPHERES[:, 0] + self.pose[:, 0], np.zeros(8),
+                            self.SPHERES[:, 1] + self.pose[:, 1]], -1)
+        a = (d * d).sum(-1)
+        for i, (c, r) in enumerate(zip(centres, self.SPHERES[:, 2])):
+            oc = cam - c
+            b = d @ oc
+            disc = b * b - a * (oc @ oc - r * r)
+            tt = (-b - np.sqrt(np.maximum(disc, 0.0))) / a
+            near = (disc > 0) & (tt > 0) & (tt < depth)
+            depth[near], hit[near] = tt[near], i + 1
+        h, w = int(self.image_size[1]), int(self.image_size[0])
+        return depth.reshape(h, w).astype(np.float32), hit.reshape(h, w), cam
+
+    def get_obs(self):
+        depth, hit, cam = self.render_ids()
+        h, w = depth.shape
+        world = cam + self._dirs * depth.reshape(-1, 1)
+        checker = ((np.floor(world[:, 0] * 4) + np.floor(world[:, 1] * 4)) % 2).reshape(h, w)
+        rgb = np.empty((h, w, 3), np.uint8)
+        rgb[:] = (120, 170, 230)  # sky
+        ground = hit == 0
+        rgb[ground] = np.where(checker[ground, None] > 0, (90, 110, 90), (60, 80, 60))
+        body = hit > 0
+        rgb[body] = np.stack([200 - 10 * hit[body], 120 + 5 * hit[body], 60 + 0 * hit[body]], -1)
+        cm = np.zeros(12, np.float32)
+        cm[:9] = self.cam_rot.reshape(-1)
+        cm[9] = cam[2]
+        return {"depth": depth[None], "rgb": np.ascontiguousarray(rgb.transpose(2, 0, 1)), "cam": cm.reshape(1, 1, 12)}
+
+    def render(self, mode="rgb_array", **kwargs):
+        return self.get_obs()["rgb"].transpose(1, 2, 0)
+
+    def close(self):
+        pass
+
+
+def build_walker_standin(obs_mode="raw", stack_frame=1, horizon=None, **kwargs):
+    """The wrapper chain ``make_gym_env`` builds, around the stand-in
+    (registered in the port's env registry as ``WalkerRawStandIn``)."""
+    from pointcloud_rl_torch.env.api import ExtendedEnv, FrameStackWrapper, TimeLimit
+
+    env = WalkerRawStandIn(obs_mode=obs_mode, **kwargs)
+    if stack_frame > 1:
+        env = FrameStackWrapper(env, stack_frame)
+    env = TimeLimit(env, horizon or (WALKER["episode_length"] + WALKER["frame_skip"] - 1) // WALKER["frame_skip"])
+    env = ExtendedEnv(env)
+    env.obs_mode = obs_mode
+    return env
+
+
+def walker_env_cfg() -> dict:
+    from pointcloud_rl_torch.env.builder import ENVS
+
+    if "WalkerRawStandIn" not in ENVS:
+        ENVS.register_module(name="WalkerRawStandIn", module=build_walker_standin)
+    return dict(type="WalkerRawStandIn", obs_mode="pointcloud", stack_frame=WALKER["frames"], server_obs=True,
+                **{k: WALKER[k] for k in ("image_size", "n_points", "num_ground", "ground_eps", "max_depth",
+                                          "fovy", "frame_skip")})
+
+
+def walker_raw_frames(n_envs: int, seed: int):
+    """``n_envs`` stand-in envs, each reset and stepped ``frames - 1`` times
+    with seeded actions: depth [B, S, H, W], rgb [B, 3S, H, W], cam
+    [B, S, 1, 12], hit ids [B, S, H, W] and camera positions [B, S, 3]."""
+    rs = np.random.RandomState(seed)
+    out = {k: [] for k in ("depth", "rgb", "cam", "hit", "pos")}
+    for i in range(n_envs):
+        env = WalkerRawStandIn(**{k: WALKER[k] for k in ("image_size", "n_points", "num_ground", "ground_eps",
+                                                          "max_depth", "fovy", "frame_skip")})
+        env.seed(seed * 1000 + i)
+        frames = [env.reset()]
+        ids = [env.render_ids()]
+        for _ in range(WALKER["frames"] - 1):
+            frames.append(env.step(rs.uniform(-1, 1, 6))[0])
+            ids.append(env.render_ids())
+        out["depth"].append(np.concatenate([f["depth"] for f in frames]))
+        out["rgb"].append(np.concatenate([f["rgb"] for f in frames]))
+        out["cam"].append(np.concatenate([f["cam"] for f in frames]))
+        out["hit"].append(np.stack([h for _, h, _ in ids]))
+        out["pos"].append(np.stack([c for _, _, c in ids]))
+    inv_k = np.asarray(env.inv_intrinsic, np.float32)
+    return {k: np.stack(v) for k, v in out.items()}, inv_k, env.cam_rot
+
+
+def fusion_labels(depth, cam, inv_k):
+    """Per-pixel heights z [B, S, HW], validity and the frame thresholds, as
+    ``dmc_raw_to_pointcloud`` computes them (the same functions)."""
+    import torch
+
+    from pointcloud_rl_torch.ops.obs_fuse import _rotate, unproject_rays
+
+    B, S, H, W = depth.shape
+    cm = cam.reshape(B, S, 12).float()
+    xyz = _rotate(unproject_rays(H, W, inv_k).reshape(H * W, 3) * depth.reshape(B, S, H * W, 1),
+                  cm[..., :9].reshape(B, S, 3, 3))
+    z = xyz[..., 2] + cm[..., 9, None]
+    valid = (depth <= WALKER["max_depth"]).reshape(B, S, H * W)
+    thr = torch.where(valid, z, torch.full_like(z, 1e9)).amin(-1, keepdim=True) + WALKER["ground_eps"]
+    return z, valid, thr
+
+
+def phase_dmc_modules(card: str) -> list:
+    """The device point-cloud ops card vs CPU on the same inputs and the same
+    draws, at the walker path's size, and their ms per call on the card."""
+    import torch
+
+    from pointcloud_rl_torch.ops import (fuse_camera_pointclouds, seg_balanced_downsample,
+                                         uniform_downsample)
+    from pointcloud_rl_torch.ops.obs_fuse import dmc_raw_to_pointcloud
+
+    raw, inv_k, cam_rot = walker_raw_frames(WALKER["envs"], seed=DMC_SEED + 11)
+    cpu = {k: torch.from_numpy(v) for k, v in raw.items()}
+    gpu = {k: v.cuda() for k, v in cpu.items()}
+    k_cpu = torch.from_numpy(inv_k)
+    B, S, H, W = raw["depth"].shape
+    g = torch.Generator().manual_seed(DMC_SEED + 12)
+    draws = (torch.rand((B, S, H * W), generator=g), torch.rand((B, S, H * W), generator=g))
+    kw = {k: WALKER[k] for k in ("n_points", "num_ground", "ground_eps", "max_depth")}
+    results = []
+
+    # -- dmc_raw_to_pointcloud, and the ground/body labels behind it
+    want = dmc_raw_to_pointcloud(cpu["depth"], cpu["rgb"], cpu["cam"], k_cpu, draws=draws, z_to_world=True, **kw)
+
+    def fuse():
+        return dmc_raw_to_pointcloud(gpu["depth"], gpu["rgb"], gpu["cam"], k_cpu.cuda(),
+                                     draws=tuple(d.cuda() for d in draws), z_to_world=True, **kw)
+
+    got = {k: v.cpu() for k, v in fuse().items()}
+    z_c, valid_c, thr_c = fusion_labels(cpu["depth"], cpu["cam"], k_cpu)
+    z_g, valid_g, thr_g = (t.cpu() for t in fusion_labels(gpu["depth"], gpu["cam"], k_cpu.cuda()))
+    flips = (valid_c & (z_c <= thr_c)) != (valid_g & (z_g <= thr_g))
+    near = (z_c - thr_c).abs() <= FLIP_BAND
+    if bool((flips & ~near).any()):
+        fail(f"obs_fuse: {int((flips & ~near).sum())} ground/body labels differ card vs CPU away from the threshold")
+    flip_frames = flips.any(-1)  # [B, S]
+    P = WALKER["n_points"]
+    ok = ~flip_frames[..., None].expand(B, S, P).reshape(B, 1, S * P)
+    xyz_err = float(((got["xyz"] - want["xyz"]).abs() * ok).max())
+    if xyz_err > XYZ_ATOL or not torch.equal(got["rgb"] * ok, want["rgb"] * ok) \
+            or not torch.equal(got["pos_encoding"], want["pos_encoding"]):
+        fail(f"obs_fuse card vs CPU: xyz max abs err {xyz_err:.3e} (limit {XYZ_ATOL}) or rgb / pos_encoding differ")
+    bitwise = torch.equal(got["xyz"], want["xyz"])
+    ground_share = float((valid_c & (z_c <= thr_c)).float().sum() / valid_c.float().sum())
+    fuse_ms = time_ms(fuse, iters=20)
+    rec = {"name": "dmc_raw_to_pointcloud", "shape": [B, S, H, W], "n_points": P, "max_abs_err": xyz_err,
+           "xyz_bitwise_equal": bitwise, "label_flips": int(flips.sum()), "frames_with_flips": int(flip_frames.sum()),
+           "valid_pixels_share": float(valid_c.float().mean()), "ground_share_of_valid": ground_share,
+           "ms": fuse_ms}
+    results.append(rec)
+    print(f"[dmc-modules] dmc_raw_to_pointcloud {B} envs x {S} frames x {H}x{W} -> [{B}, 3, {S * P}]: card vs CPU "
+          f"xyz max abs err {xyz_err:.3e} (bitwise equal: {bitwise}), rgb and pos_encoding identical; ground/body "
+          f"label flips at the threshold {rec['label_flips']} in {rec['frames_with_flips']} frames (rule: a flip "
+          f"counts as rounding within {FLIP_BAND} of the threshold, else fails); {fuse_ms:.3f} ms per call on {card}",
+          flush=True)
+
+    # -- fuse_camera_pointclouds: the three frames as three cameras of each env
+    focal = 1.0 / inv_k[0, 0]
+    K = torch.tensor([[focal, 0, (W - 1) / 2], [0, focal, (H - 1) / 2], [0, 0, 1]], dtype=torch.float32)
+    pose = torch.eye(4).repeat(B, S, 1, 1)
+    pose[..., :3, :3] = torch.from_numpy(cam_rot).float()
+    pose[..., :3, 3] = cpu["pos"].float()
+    rgbs = cpu["rgb"].reshape(B, S, 3, H, W).permute(0, 1, 3, 4, 2).contiguous()
+    hit = cpu["hit"]
+    segs = torch.stack([(hit == 1) | (hit == 2), hit >= 3], -1)  # torso + pelvis, legs
+    c_args = (cpu["depth"], rgbs, K, pose, segs)
+    g_args = tuple(a.cuda() for a in c_args)
+    w_xyz, w_rgb, w_seg = fuse_camera_pointclouds(*c_args)
+    g_xyz, g_rgb, g_seg = (t.cpu() for t in fuse_camera_pointclouds(*g_args))
+    cam_err = check_close("fuse_camera_pointclouds xyz, card vs CPU", g_xyz, w_xyz, XYZ_ATOL, 0.0)
+    if not (torch.equal(g_rgb, w_rgb) and torch.equal(g_seg, w_seg)):
+        fail("fuse_camera_pointclouds: rgb or seg differ card vs CPU")
+    cam_ms = time_ms(lambda: fuse_camera_pointclouds(*g_args), iters=20)
+    results.append({"name": "fuse_camera_pointclouds", "shape": [B, S, H, W], "max_abs_err": cam_err, "ms": cam_ms})
+
+    # -- the two downsamplers on the fused cloud (the CPU's, on both devices)
+    N = S * H * W
+    rank, order = torch.rand((B, N, 3), generator=g), torch.rand((B, N), generator=g)
+    uni = torch.rand((B, N), generator=g)
+    sb_kw = dict(n_points=P, min_pts=50, fg_pts=P - WALKER["num_ground"], ground_eps=1e-3)
+    xg, sg = w_xyz.cuda(), w_seg.cuda()
+    for name, fn_cpu, fn_gpu in (
+            ("seg_balanced_downsample",
+             lambda: seg_balanced_downsample(w_xyz, w_seg, draws=(rank, order), **sb_kw),
+             lambda: seg_balanced_downsample(xg, sg, draws=(rank.cuda(), order.cuda()), **sb_kw)),
+            ("uniform_downsample",
+             lambda: uniform_downsample(w_xyz, P, draws=uni),
+             lambda: uniform_downsample(xg, P, draws=uni.cuda()))):
+        want_idx, got_idx = fn_cpu(), fn_gpu().cpu()
+        if not torch.equal(got_idx, want_idx):
+            fail(f"{name}: indices differ card vs CPU on {int((got_idx != want_idx).sum())} of {want_idx.numel()}")
+        ms = time_ms(fn_gpu, iters=20)
+        results.append({"name": name, "shape": [B, N, 3], "n_points": P, "indices_identical": True, "ms": ms})
+    print(f"[dmc-modules] fuse_camera_pointclouds {B} envs x {S} cameras x {H}x{W}: card vs CPU xyz max abs err "
+          f"{cam_err:.3e} (limit {XYZ_ATOL}), rgb and seg identical, {cam_ms:.3f} ms; seg_balanced_downsample and "
+          f"uniform_downsample of [{B}, {N}, 3] to {P}: indices identical, "
+          f"{results[-2]['ms']:.3f} / {results[-1]['ms']:.3f} ms per call on {card}", flush=True)
+    print(json.dumps({"dmc_modules": results}), flush=True)
+    return results
+
+
+def walker_agent_cfg():
+    """(agent config of ``pn_walker_tpu.py`` resolved against the walker's
+    obs shapes, env info, the config)."""
+    from pointcloud_rl_torch.apis.run_rl import load_config, resolve_agent_placeholders
+    from pointcloud_rl_torch.env.spaces import Box
+
+    n = WALKER["n_points"] * WALKER["frames"]
+    ones = np.ones(WALKER["action_dim"], np.float32)
+    info = dict(obs_shape={"xyz": (3, n), "rgb": (3, n), "pos_encoding": (WALKER["frames"], n)},
+                action_shape=WALKER["action_dim"], action_space=Box(-ones, ones), is_discrete=False)
+    cfg = load_config(osp.join(REPO, WALKER_CONFIG))
+    resolve_agent_placeholders(cfg, info)
+    return dict(cfg["agent_cfg"]), info, cfg
+
+
+def profiled(fn, acts) -> tuple:
+    """(host ms, device busy ms) of ``fn()`` under torch.profiler."""
+    import torch
+
+    with torch.profiler.profile(activities=[acts.CPU, acts.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+    busy = 0.0
+    for evt in prof.key_averages():
+        if getattr(evt, "is_user_annotation", False) or "#" in evt.key:
+            continue
+        dt = getattr(evt, "self_device_time_total", None)
+        if dt is None:
+            dt = evt.self_cuda_time_total
+        if dt and evt.device_type is not None and "CUDA" in str(evt.device_type):
+            busy += dt / 1e3
+    return host, busy
+
+
+def phase_dmc(pf, card: str) -> dict:
+    """The walker recipe on the card: raw stand-in renders fused by the port's
+    ``ServerObsVectorEnv``, the agent of ``pn_walker_tpu.py`` at full width
+    on a ``DeviceReplayMemory`` of packed bf16 features, collection and
+    updates through the calls ``train_rl`` makes."""
+    import torch
+
+    from pointcloud_rl_torch.algorithms import build_agent
+    from pointcloud_rl_torch.env import build_replay, build_rollout
+    from pointcloud_rl_torch.env.server_env import ServerObsVectorEnv
+    from pointcloud_rl_torch.utils.tree_ops import tree_leaves
+
+    agent_cfg, info, cfg = walker_agent_cfg()
+    train_cfg = dict(cfg["train_cfg"])
+    n_steps, n_updates, warm = train_cfg["n_steps"], train_cfg["n_updates"], train_cfg["warm_steps"]
+    rollout_cfg = dict(cfg["rollout_cfg"], env_cfg=walker_env_cfg(), base_seed=DMC_SEED, vec_backend="thread",
+                       device="cuda")
+    t0 = time.monotonic()
+    rollout = build_rollout(rollout_cfg)
+    try:
+        server = rollout.vec_env.vec_env
+        if not (isinstance(server, ServerObsVectorEnv) and server.device.type == "cuda"):
+            fail(f"dmc: the rollout's vec env is {type(server).__name__}, not a ServerObsVectorEnv on cuda")
+        obs = rollout.recent_obs
+        shapes = {k: tuple(v.shape[1:]) for k, v in obs.items()}
+        if shapes != info["obs_shape"] or obs["rgb"].dtype != np.uint8:
+            fail(f"dmc: fused obs shapes {shapes}, expected {info['obs_shape']}")
+        agent = build_agent(dict(agent_cfg, env_params=info, seed=DMC_SEED, device="cuda"))
+        replay = build_replay(cfg["replay_cfg"], dict(seed=DMC_SEED), device=agent.device)
+        spec = agent.obs_transfer
+        print(f"[dmc] {WALKER_CONFIG}: {type(agent).__name__} ({agent.num_params:,} params, bf16, fused PointNet "
+              f"{agent_cfg['actor_cfg']['nn_cfg']['visual_nn_cfg']['mlp_spec']} -> "
+              f"{agent_cfg['actor_cfg']['nn_cfg']['visual_nn_cfg']['out_channels']}), batch {agent.batch_size}; "
+              f"obs transfer {spec}; {rollout.num_envs} stand-in envs behind ServerObsVectorEnv(num_frames="
+              f"{server.num_frames}) on {server.device}; set-up {time.monotonic() - t0:.1f} s", flush=True)
+        pf.reset_launch_counts()
+        t_warm = time.monotonic()
+        rollout.forward_with_policy(None, warm, replay)
+        torch.cuda.synchronize()
+        warm_s = time.monotonic() - t_warm
+        storage = replay.storage
+        if not (type(replay).__name__ == "DeviceReplayMemory" and replay.device.type == "cuda"
+                and set(storage["obs"]) == {"pcd"} and storage["obs"]["pcd"].dtype == torch.bfloat16):
+            fail(f"dmc: the replay is {type(replay).__name__} on {replay.device}, obs "
+                 f"{ {k: (tuple(v.shape), v.dtype) for k, v in storage['obs'].items()} }")
+        storage_gb = sum(x.nbytes for x in tree_leaves(storage)) / 1e9
+        updates, metrics = 0, []
+
+        def collect():  # one collection cycle, then its updates, as train_rl runs them
+            agent.eval()
+            rollout.forward_with_policy(agent, n_steps, replay)
+
+        def update():
+            nonlocal updates
+            agent.train()
+            for _ in range(n_updates):
+                updates += 1
+                metrics.append(agent.update_parameters(replay, updates))
+
+        collect_s = update_s = 0.0
+        t_loop = time.monotonic()
+        for _ in range(DMC_CYCLES):
+            t1 = time.monotonic()
+            collect()
+            t2 = time.monotonic()
+            update()
+            t3 = time.monotonic()
+            collect_s, update_s = collect_s + t2 - t1, update_s + t3 - t2
+        torch.cuda.synchronize()
+        loop_s = time.monotonic() - t_loop
+        acts = torch.profiler.ProfilerActivity
+        prof = {"collect": [0.0, 0.0], "update": [0.0, 0.0]}  # host ms, device busy ms
+        for _ in range(DMC_PROFILED_CYCLES):
+            for part, fn in (("collect", collect), ("update", update)):
+                host, busy = profiled(fn, acts)
+                prof[part][0] += host
+                prof[part][1] += busy
+        torch.cuda.synchronize()
+        launches = dict(pf.launch_counts)
+    finally:
+        rollout.close()
+    for kname in TPU_KERNELS:
+        if launches[kname] <= 0:
+            fail(f"{kname} was never launched by the dmc run")
+    bad = [(i, k) for i, m in enumerate(metrics) for k, v in m.items() if not math.isfinite(v)]
+    if bad or not any("sac/critic_loss" in m for m in metrics):
+        fail(f"dmc: non-finite or missing update metrics {bad[:5]}")
+    cycles = DMC_CYCLES + DMC_PROFILED_CYCLES
+    busy_update = prof["update"][1] / (DMC_PROFILED_CYCLES * n_updates)
+    busy_cycle = (prof["collect"][1] + prof["update"][1]) / DMC_PROFILED_CYCLES
+    wall_cycle = 1e3 * loop_s / DMC_CYCLES
+    rec = {
+        "name": "dmc", "config": WALKER_CONFIG, "envs": rollout.num_envs, "warm_steps": warm,
+        "cycles": cycles, "updates": updates, "env_steps": warm + cycles * n_steps,
+        "launches": launches, "replay_storage_gb": storage_gb, "warm_up_s": warm_s,
+        "updates_per_s": DMC_CYCLES * n_updates / loop_s, "env_steps_per_s": DMC_CYCLES * n_steps / loop_s,
+        "collect_ms_per_cycle": 1e3 * collect_s / DMC_CYCLES, "update_ms_per_update": 1e3 * update_s / (DMC_CYCLES * n_updates),
+        "device_busy_ms_per_update": busy_update,
+        "device_busy_ms_per_collection": prof["collect"][1] / DMC_PROFILED_CYCLES,
+        "device_idle_share": 1.0 - busy_cycle / wall_cycle,
+        "profiled_host_ms_per_cycle": (prof["collect"][0] + prof["update"][0]) / DMC_PROFILED_CYCLES,
+        "critic_loss_last": metrics[-1]["sac/critic_loss"],
+    }
+    print(f"[dmc] trained {updates} updates over {rec['env_steps']} env steps ({warm} warm-up, then {cycles} cycles "
+          f"of {n_steps} env steps + {n_updates} updates); kernel launches {launches}; replay "
+          f"{storage_gb:.2f} GB on the card", flush=True)
+    print(f"[dmc] {rec['updates_per_s']:.1f} updates/s and {rec['env_steps_per_s']:.1f} env steps/s over "
+          f"{DMC_CYCLES} unprofiled cycles ({wall_cycle:.1f} ms per cycle: collection {rec['collect_ms_per_cycle']:.1f}, "
+          f"updates {rec['update_ms_per_update']:.2f} ms each); device busy {busy_update:.2f} ms per update and "
+          f"{rec['device_busy_ms_per_collection']:.2f} ms per collection; device idle {rec['device_idle_share']:.1%} "
+          f"of the unprofiled cycle on {card}", flush=True)
+    rec["reference"] = dmc_reference(agent, agent_cfg, info)
+    return rec
+
+
+def dmc_reference(agent, agent_cfg, info) -> dict:
+    """The trained card agent (fused kernels, bf16) against the same state on
+    the CPU (plain versions): eval actions on 32 fused observations, each
+    side packing the act upload in float16 as its spec asks."""
+    from pointcloud_rl_torch.algorithms import build_agent
+    from pointcloud_rl_torch.env import build_vec_env
+
+    env = build_vec_env(walker_env_cfg(), WALKER["envs"], base_seed=DMC_SEED + 100, vec_backend="thread",
+                        device="cuda")
+    try:
+        first = env.reset()
+        second = env.step(np.stack([env.single_action_space.sample() for _ in range(WALKER["envs"])]))[0]
+    finally:
+        env.close()
+    obs = {k: np.concatenate([first[k], second[k]]) for k in first}
+    cpu = build_agent(dict(agent_cfg, env_params=info, seed=DMC_SEED, device="cpu"))
+    cpu.model.load_state_dict(agent.model.state_dict())
+    want, got = cpu.forward(obs, mode="eval"), agent.forward(obs, mode="eval")
+    diff = np.abs(got - want)
+    if got.shape != (REF_OBS, info["action_shape"]) or not np.isfinite(got).all():
+        fail(f"dmc: actions of shape {got.shape}")
+    err = float(diff.max())
+    flips = int((diff > FLIP_ABS).sum())
+    print(f"[reference] dmc: card (kernel, bf16) vs CPU (plain, bf16) eval actions on {REF_OBS} fused observations, "
+          f"float16 act upload on both: max abs diff {err:.3e} (limit {ACTION_ATOL_BF16}); {flips} of {diff.size} "
+          f"elements differ by more than {FLIP_ABS}", flush=True)
+    if err > ACTION_ATOL_BF16:
+        fail(f"dmc: card vs CPU eval actions differ by {err:.3e} > {ACTION_ATOL_BF16}")
+    return {"obs": REF_OBS, "max_abs_diff": err, "flips": flips, "limit": ACTION_ATOL_BF16}
+
+
 def main() -> int:
     if not osp.isdir(osp.join(REPO, "pointcloud_rl_torch")):
         fail(f"the port's package is not beside {__file__}; run from a checkout of the repo")
@@ -964,10 +1473,17 @@ def main() -> int:
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
-    kernels_only = "--kernels-only" in sys.argv[1:]
+    argv = sys.argv[1:]
+    kernels_only = "--kernels-only" in argv
+    # --only PHASE[,PHASE]: runs, encoders, modules, dmc (the kernel phase always runs)
+    only = set(argv[argv.index("--only") + 1].split(",")) if "--only" in argv else None
+
+    def wanted(phase: str) -> bool:
+        return not kernels_only and (only is None or phase in only)
 
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
+    card = f"{kind} ({smi})"
     print(f"[card] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     from pointcloud_rl_torch.ops import build as kbuild
@@ -980,12 +1496,11 @@ def main() -> int:
     hgmma = phase_sass(str(lib_path))
 
     report: dict = {}
-    phase_kernels(pf, report, f"{kind} ({smi})")
+    phase_kernels(pf, report, card)
     print(f"[time] build and kernel phases: {time.monotonic() - t0:.1f} s", flush=True)
 
-    launches = {k: None for k in TPU_KERNELS}
     by_run: dict = {}
-    if not kernels_only:
+    if wanted("runs"):
         work = tempfile.mkdtemp(prefix="chip_smoke_", dir=osp.join(REPO, "build"))
         summaries = {}
         try:
@@ -1009,14 +1524,24 @@ def main() -> int:
             by_run[name] = summary["launches"]
             print(f"[{name}] {summary['env_steps_per_s']:.1f} env steps/s, "
                   f"{summary['updates_per_s']:.1f} updates/s over the main loop "
-                  f"({summary['main_loop_s']:.1f} s) on {kind} ({smi})", flush=True)
-        launches = {k: sum(run[k] for run in by_run.values()) for k in TPU_KERNELS}
+                  f"({summary['main_loop_s']:.1f} s) on {card}", flush=True)
         print(f"[time] through the training runs: {time.monotonic() - t0:.1f} s", flush=True)
-        phase_encoders(f"{kind} ({smi})")
+    if wanted("encoders"):
+        phase_encoders(card)
         print(f"[time] through the encoder phase: {time.monotonic() - t0:.1f} s", flush=True)
-        phase_modules(f"{kind} ({smi})")
+    if wanted("modules"):
+        phase_modules(card)
         print(f"[time] through the module phase: {time.monotonic() - t0:.1f} s", flush=True)
+    dmc = None
+    if wanted("dmc"):
+        phase_dmc_modules(card)
+        print(f"[time] through the dmc module phase: {time.monotonic() - t0:.1f} s", flush=True)
+        dmc = phase_dmc(pf, card)
+        by_run["dmc"] = dmc["launches"]
+        print(json.dumps({"dmc": dmc}), flush=True)
+        print(f"[time] through the dmc run: {time.monotonic() - t0:.1f} s", flush=True)
 
+    launches = {k: (sum(run[k] for run in by_run.values()) if by_run else None) for k in TPU_KERNELS}
     kernels = []
     for kname, rec in report.items():
         shp = rec["shapes"]
@@ -1030,16 +1555,17 @@ def main() -> int:
             "library_ms": None,  # no single PyTorch call computes body + LayerNorm + max-pool
             "launches_by_run": {name: run[kname] for name, run in by_run.items()},
             **{f"{shape}_{key}": shp[shape][key]
-               for shape in ("drq_f32", "drq_bf16", "rnn_target_f32", "act_f32", "act_bf16")
+               for shape in ("drq_f32", "drq_bf16", "rnn_target_f32", "act_f32", "act_bf16", "act_walker_bf16")
                for key in ("ms", "plain_ms", "bound_ms")},
             "walker_f32_ms": shp["walker_f32"]["ms"],
             "walker_bf16_ms": shp["walker_bf16"]["ms"],
+            "walker_bf16_plain_ms": shp["walker_bf16"]["plain_ms"],
             "walker_bf16_bound_ms": shp["walker_bf16"]["bound_ms"],
             "hgmma": hgmma[kname],
         })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    if kernels_only:
+    if kernels_only or only is not None:
         return 0
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}), flush=True)

@@ -35,6 +35,34 @@ def to_torch(tree: Any, device: torch.device) -> Any:
     return torch.as_tensor(np.asarray(tree)).to(device)
 
 
+def pack_pointcloud_obs(obs: Dict[str, Any], spec=None):
+    """Assemble a point-cloud obs dict into ONE channel-first array (and the
+    robot state): xyz, rgb/255, pos_encoding, seg, as the PointNet's own
+    preprocessing orders them, so the act uploads one array.
+
+    ``spec`` (``ObsTransferSpec``): leave out the constant pos_encoding
+    block (``_device_obs`` re-synthesizes it) and/or pack in the spec's
+    narrower dtype."""
+    drop_pos = spec is not None and spec.drop_pos_encoding
+    feats = [np.asarray(obs["xyz"])]
+    if "rgb" in obs:
+        rgb = np.asarray(obs["rgb"])
+        # divide in f32 (uint8 / 255), cast at the assignment
+        feats.append(np.divide(rgb, np.float32(255.0), dtype=np.float32) if rgb.dtype == np.uint8 else rgb)
+    for key in ("pos_encoding", "seg"):
+        if key in obs and not (drop_pos and key == "pos_encoding"):
+            feats.append(np.asarray(obs[key]))
+    out_dtype = spec.pack_dtype if (spec is not None and spec.pack_dtype is not None) else np.float32
+    ch = sum(f.shape[-2] for f in feats)
+    packed = np.empty(feats[0].shape[:-2] + (ch,) + feats[0].shape[-1:], out_dtype)
+    at = 0
+    for f in feats:
+        packed[..., at:at + f.shape[-2], :] = f
+        at += f.shape[-2]
+    state = obs.get("state", obs.get("agent"))
+    return packed, (np.asarray(state, np.float32) if state is not None else None)
+
+
 class BaseAgent:
     """Common host plumbing; algorithm classes implement ``act`` and the update."""
 
@@ -44,6 +72,55 @@ class BaseAgent:
             raise RuntimeError("device 'cuda' was asked for, but torch.cuda.is_available() is false")
         self.modules: Dict[str, torch.nn.Module] = {}
         self._rnn_states = None  # a recurrent agent's per-env state [B, L, H], threaded through act
+        self.obs_transfer = None  # ObsTransferSpec (init_obs_transfer)
+
+    def init_obs_transfer(self, cfg, obs_shape) -> None:
+        """Arm ``obs_transfer_cfg`` (``algorithms/obs_transfer.py``) for the
+        env's obs shapes: drop the constant pos_encoding block from the act
+        upload and the update's batches and re-synthesize it on the device,
+        and pack the act upload in a narrower dtype."""
+        from .obs_transfer import make_obs_transfer
+
+        self.obs_transfer = make_obs_transfer(cfg, obs_shape)
+
+    def _device_obs(self, obs):
+        """Complete an obs on the device: re-attach the pos_encoding block
+        the spec dropped, and cast a packed upload to float32.  A no-op
+        without a spec or when the obs already carry the block."""
+        spec = self.obs_transfer
+        if spec is None:
+            return obs
+        from .obs_transfer import complete_obs_dict, complete_packed
+
+        if not isinstance(obs, dict):
+            return complete_packed(obs, spec) if spec.drop_pos_encoding or spec.pack_dtype else obs
+        if "packed" in obs:
+            obs = dict(obs)
+            obs["packed"] = complete_packed(obs["packed"], spec)
+            return obs
+        if spec.drop_pos_encoding:
+            return complete_obs_dict(obs, spec)
+        return obs
+
+    def _upload_obs(self, obs):
+        """The act's host -> device step.  With a transfer spec, a point-cloud
+        obs goes up as the spec asks: ``"dict"`` sends the model's leaves
+        (xyz in ``pack_dtype``, rgb uint8) less the dropped block,
+        ``"packed"`` one array from ``pack_pointcloud_obs``; on the device
+        it is completed and cast to float32 (``_device_obs``)."""
+        spec = self.obs_transfer
+        if (spec is not None and isinstance(obs, dict) and "xyz" in obs
+                and getattr(self, "inference_aug", None) is None):
+            if spec.pack_mode == "dict":
+                keep = ("xyz", "rgb", "seg", "state", "agent") + (
+                    () if spec.drop_pos_encoding else ("pos_encoding",))
+                obs = {k: v for k, v in obs.items() if k in keep}
+                if spec.pack_dtype is not None:
+                    obs["xyz"] = np.asarray(obs["xyz"]).astype(spec.pack_dtype)
+            else:
+                packed, state = pack_pointcloud_obs(obs, spec=spec)
+                obs = packed if state is None else {"state": state, "packed": packed}
+        return self._device_obs(to_torch(obs, self.device))
 
     def train(self):
         for m in self.modules.values():
@@ -61,7 +138,7 @@ class BaseAgent:
     @torch.no_grad()
     def forward(self, obs, mode: str = "explore", **kwargs) -> np.ndarray:
         """obs (numpy tree, batched) -> actions (numpy [B, A])."""
-        return self.act(to_torch(obs, self.device), mode).cpu().numpy()
+        return self.act(self._upload_obs(obs), mode).cpu().numpy()
 
     def reset_rnn_states(self, dones=None) -> None:
         """Zero the recurrent states: all of them, or the rows of the envs

@@ -10,8 +10,10 @@ work-dir layout, plus ``--device``::
 ``--device cuda`` (the default) raises when no GPU is visible: nothing
 moves to the CPU on its own.  The rollout and the evaluator (whose env
 workers start through ``forkserver``) are built before the agent, i.e.
-before CUDA is initialised; the replay after the agent, since a
-``DeviceReplayMemory`` keeps its storage on the agent's device.  Each run
+before the agent touches CUDA; with ``env_cfg.server_obs=True`` they fuse
+their workers' raw renders on ``--device`` too.  The replay comes after the
+agent, since a ``DeviceReplayMemory`` keeps its storage on the agent's
+device.  Each run
 writes ``run_summary.json`` into the work dir: the device, step counts,
 throughput over the main loop, the replay (type, device, bytes of storage),
 the fused-PointNet kernel launches of the process, evaluation results, and
@@ -175,6 +177,7 @@ def run(cfg: Config, work_dir: str, seed: int, args) -> dict:
         rollout_cfg = dict(cfg["rollout_cfg"])
         rollout_cfg.setdefault("env_cfg", env_cfg)
         rollout_cfg.setdefault("base_seed", seed)
+        rollout_cfg.setdefault("device", args.device)  # a server_obs env fuses there
         rollout = build_rollout(rollout_cfg)
     evaluator, eval_num = None, None
     if "eval_cfg" in cfg:
@@ -183,6 +186,7 @@ def run(cfg: Config, work_dir: str, seed: int, args) -> dict:
         merged_env.update(dict(eval_cfg.pop("env_cfg", {})))
         eval_cfg["env_cfg"] = merged_env
         eval_cfg.setdefault("seed", (seed or 0) + 2**16)
+        eval_cfg.setdefault("device", args.device)
         eval_num = eval_cfg.get("num", 1)
         evaluator = build_evaluation(eval_cfg)
 

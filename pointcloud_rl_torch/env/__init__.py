@@ -1,11 +1,13 @@
 """Host-side environments, vec envs, replay, rollout and evaluation.
 
-Numpy-only copies of the ``pointcloud_rl_tpu.env`` modules the SAC +
-PointNet slice runs (each file names its source): that package's
-``__init__`` imports its JAX device replay, so the port cannot import it.
-Nothing imported here imports torch, so env worker processes stay light;
-``device_replay`` (the torch port of the device replay) is imported by
-``build_replay`` only when a config asks for a ``DeviceReplayMemory``.
+Numpy-only copies of the ``pointcloud_rl_tpu.env`` modules the port runs
+(each file names its source; ``dmc`` imports dm_control only inside its
+functions): that package's ``__init__`` imports its JAX device replay, so
+the port cannot import it.  Nothing imported here imports torch, so env
+worker processes stay light; ``device_replay`` (the torch port of the
+device replay) is imported by ``build_replay`` only when a config asks for
+a ``DeviceReplayMemory``, and ``server_env`` (the device fusion of raw
+renders) by the vec-env builder only for ``server_obs``.
 """
 
 from .api import Env, ExtendedEnv, FrameStackWrapper, TimeLimit, Wrapper, true_done

@@ -32,8 +32,13 @@ WRAPPERS = Registry("wrapper")
 def _build_base_env(env_name: str, obs_mode: str, **kwargs) -> Env:
     """Dispatch on env_name to the owning integration.
 
-    Only the numpy simulators are copied into the port; the DMC, MuJoCo,
-    ManiSkill and gymnasium integrations wait for ROADMAP.md item A1."""
+    The port runs DM Control and the numpy simulators; the MuJoCo
+    manipulation tasks and ManiSkill are not ported (ROADMAP.md item A8),
+    and the gymnasium adapter waits for item A9."""
+    if env_name.startswith(("dmc_", "distract_dmc_")):
+        from .dmc import build_dmc_env
+
+        return build_dmc_env(env_name, obs_mode=obs_mode, **kwargs)
     if env_name.startswith("reacher3d_easy"):
         from .dist_env import DistEnv
 
@@ -42,9 +47,13 @@ def _build_base_env(env_name: str, obs_mode: str, **kwargs) -> Env:
         from .fake_manipulation import FakeManipulationEnv
 
         return FakeManipulationEnv(obs_mode=obs_mode, **kwargs)
+    if env_name.startswith(("MoveBucket", "OpenCabinetDoor", "OpenCabinetDrawer", "PushChair")):
+        raise NotImplementedError(
+            f"env {env_name!r} is not ported to pointcloud_rl_torch: the MuJoCo manipulation tasks and "
+            "ManiSkill need assets from outside the repo (ROADMAP.md queue A, item A8)")
     raise NotImplementedError(
-        f"env {env_name!r} is not ported to pointcloud_rl_torch yet (ROADMAP.md queue A, item A1); "
-        "the port runs reacher3d_easy* and FakeManipulation*")
+        f"env {env_name!r} is not ported to pointcloud_rl_torch yet: the gymnasium adapter waits for "
+        "ROADMAP.md queue A, item A9; the port runs dmc_*, reacher3d_easy* and FakeManipulation*")
 
 
 @ENVS.register_module(name="gym")
@@ -125,7 +134,9 @@ def get_env_info(env_cfg: dict, env: Optional[Env] = None) -> Dict[str, Any]:
 
 
 def build_vec_env(env_cfg: dict, num_procs: int = 1, base_seed: Optional[int] = None,
-                  vec_backend: Optional[str] = None, **override) -> UnifiedVectorEnvAPI:
+                  vec_backend: Optional[str] = None, device="cuda", **override) -> UnifiedVectorEnvAPI:
+    """``num_procs`` copies of ``env_cfg`` as one vec env; ``device`` is
+    where a ``server_obs`` env fuses its observations."""
     cfgs = []
     for i in range(num_procs):
         cfg = deepcopy(dict(env_cfg))
@@ -133,7 +144,7 @@ def build_vec_env(env_cfg: dict, num_procs: int = 1, base_seed: Optional[int] = 
         cfgs.append(cfg)
     seeds = None if base_seed is None else [base_seed + i for i in range(num_procs)]
     return build_vec_env_from_cfgs(cfgs, seeds=seeds, use_subprocess=num_procs > 1,
-                                   backend=vec_backend)
+                                   backend=vec_backend, device=device)
 
 
 def build_rollout(cfg, default_args=None):

@@ -97,9 +97,11 @@ class Evaluation:
         log_every_step: bool = False,
         eval_levels: Optional[List] = None,
         seed: Optional[int] = None,
+        device="cuda",
         **kwargs,
     ):
-        self.vec_env = build_vec_env(env_cfg, num_procs, base_seed=seed)
+        # ``device``: where a server_obs env fuses its observations
+        self.vec_env = build_vec_env(env_cfg, num_procs, base_seed=seed, device=device)
         self.num_envs = self.vec_env.num_envs
         self.num = num
         self.save_traj = save_traj

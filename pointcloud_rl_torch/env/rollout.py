@@ -35,10 +35,12 @@ class Rollout:
         vec_backend: Optional[str] = None,
         eager_push: bool = False,
         action_lag: int = 0,
+        device="cuda",
         **kwargs,
     ):
+        # ``device``: where a server_obs env fuses its observations
         self.vec_env = build_vec_env(env_cfg, num_procs, base_seed=base_seed,
-                                     vec_backend=vec_backend)
+                                     vec_backend=vec_backend, device=device)
         self.num_envs = self.vec_env.num_envs
         self.full_episode = full_episode
         self.with_info = with_info

@@ -626,18 +626,36 @@ def _stack_infos(infos: List[dict]) -> Dict[str, np.ndarray]:
 
 
 def build_vec_env_from_cfgs(env_cfgs, seeds=None, use_subprocess: Optional[bool] = None,
-                            backend: Optional[str] = None) -> UnifiedVectorEnvAPI:
+                            backend: Optional[str] = None, device="cuda") -> UnifiedVectorEnvAPI:
     """Pick the vec-env implementation (reference env_utils.py:220-258).
 
     ``backend``: "subprocess" (default for >1 env), "thread"
     (ThreadBasedVectorEnv — SapienThreadEnv analogue, for GIL-releasing
     sims), or "single" (1 env in-process).
 
-    ``server_obs: True`` (the JAX package's device-fused observation path,
-    env/server_env.py) is not ported and raises."""
-    if any(dict(c).get("server_obs", False) for c in env_cfgs):
-        raise NotImplementedError("env_cfg.server_obs is not ported to pointcloud_rl_torch yet "
-                                  "(ROADMAP.md queue A, item A1)")
+    ``server_obs: True`` in the env cfgs selects the ServerBasedVectorEnv
+    analogue (reference vec_env.py:562-742): workers run in
+    ``obs_mode="raw"`` (cheap render products) and ONE batched program on
+    ``device`` fuses every env's observation to the pointcloud contract
+    (env/server_env.py).  ``device`` is used by that path only."""
+    server_obs = any(dict(c).get("server_obs", False) for c in env_cfgs)
+    if server_obs:
+        from .server_env import ServerObsVectorEnv
+
+        inner_cfgs = []
+        num_frames = 1
+        for c in env_cfgs:
+            c = dict(c)
+            c.pop("server_obs", None)
+            if c.get("obs_mode", "state") != "pointcloud":
+                raise ValueError("server_obs fuses the pointcloud contract only")
+            c["obs_mode"] = "raw"
+            num_frames = int(c.get("stack_frame", 1))
+            inner_cfgs.append(c)
+        base = build_vec_env_from_cfgs(inner_cfgs, seeds=seeds, use_subprocess=use_subprocess, backend=backend)
+        seed0 = seeds[0] if seeds else None
+        return UnifiedVectorEnvAPI(ServerObsVectorEnv(base.vec_env, num_frames=num_frames, seed=seed0,
+                                                      device=device))
     if backend is None:
         if use_subprocess is None:
             use_subprocess = len(env_cfgs) > 1

@@ -8,7 +8,9 @@ and in every process it starts (the env workers included); then every
 ``pointcloud_rl_torch`` module is imported and the slices' CLI takes a few
 CPU steps with two env worker processes: SAC on a host replay, DrQ on
 a ``DeviceReplayMemory`` with packed bf16 storage and the bf16 agent flag,
-and DrQ with the voxel encoder.
+and DrQ with the voxel encoder; and the DMC path below the simulator (the
+device fusion of raw renders, the walker recipe's agent with its obs
+transfer, a packed device replay, an update) runs with dm_control blocked.
 """
 
 import json
@@ -70,9 +72,9 @@ def test_every_module_imports_without_jax(tmp_path):
     out = subprocess.run([sys.executable, "-c", script], env=_env(tmp_path), cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    # every module of the package was imported (63 with the GRU, DDPG and
-    # the schedulers)
-    assert int(out.stdout.split()[-1]) >= 63
+    # every module of the package was imported (68 with the DMC env, the
+    # server env, and the fusion, camera and sampling ops)
+    assert int(out.stdout.split()[-1]) >= 68
 
 
 _FUSED = "agent_cfg.actor_cfg.nn_cfg.visual_nn_cfg.fused=True"
@@ -103,3 +105,54 @@ def test_slice_trains_without_jax(name, tmp_path):
     assert f"{prefix}/critic_loss" in (wd / "0" / "logs" / "metrics.csv").read_text().splitlines()[0]
     summary = json.loads((wd / "0" / "run_summary.json").read_text())
     assert summary["pointcloud_rl_tpu_modules"] == []
+
+
+_DMC_PATH = textwrap.dedent("""
+    import numpy as np
+    from pointcloud_rl_torch.algorithms import build_agent
+    from pointcloud_rl_torch.apis.run_rl import load_config, resolve_agent_placeholders
+    from pointcloud_rl_torch.env import build_replay
+    from pointcloud_rl_torch.env.server_env import ServerObsVectorEnv
+    from pointcloud_rl_torch.env.spaces import Box
+
+    class Inner:  # raw renders of 2 envs x 3 frames, as DMC workers in obs_mode="raw" ship them
+        num_envs = 2
+        attrs = dict(n_points=16, num_ground=4, ground_eps=8e-3, max_depth=5.0, z_to_world=True,
+                     fix_base_z=None, inv_intrinsic=np.linalg.inv([[10.0, 0, 3.5], [0, 10.0, 3.5], [0, 0, 1.0]]))
+
+        def get_attr(self, name, idx=None):
+            return self.attrs[name]
+
+        def reset(self, idx=None, **kwargs):
+            rs = np.random.RandomState(0)
+            cam = np.zeros((2, 3, 1, 12), np.float32)
+            cam[..., :9] = np.eye(3, dtype=np.float32).reshape(-1)
+            return {"depth": rs.uniform(0.5, 6.0, (2, 3, 8, 8)).astype(np.float32),
+                    "rgb": rs.randint(0, 256, (2, 9, 8, 8)).astype(np.uint8), "cam": cam}
+
+    obs = ServerObsVectorEnv(Inner(), num_frames=3, seed=0, device="cpu").reset()
+    info = dict(obs_shape={k: v.shape[1:] for k, v in obs.items()}, action_shape=6, is_discrete=False,
+                action_space=Box(-np.ones(6, np.float32), np.ones(6, np.float32)))
+    cfg = load_config("configs/mfrl/sac/dm_control/pn_walker_tpu.py", {
+        "agent_cfg.actor_cfg.nn_cfg.visual_nn_cfg.mlp_spec": [8, 8, 16],
+        "agent_cfg.actor_cfg.nn_cfg.mlp_cfg.mlp_spec": [50, 16, 16, "action_shape * 2"],
+        "agent_cfg.critic_cfg.nn_cfg.mlp_cfg.mlp_spec": ["50 + action_shape", 16, 16, 1],
+        "agent_cfg.batch_size": 4, "replay_cfg.capacity": 8})
+    resolve_agent_placeholders(cfg, info)
+    agent = build_agent(dict(cfg["agent_cfg"], env_params=info, seed=0, device="cpu"))
+    assert agent.obs_transfer.drop_pos_encoding and str(agent.obs_transfer.pack_dtype) == "float16"
+    actions = agent.forward(obs, mode="explore")
+    replay = build_replay(cfg["replay_cfg"], dict(seed=0), device=agent.device)
+    replay.push_batch(dict(obs=obs, next_obs=obs, actions=actions, rewards=np.ones((2, 1), np.float32),
+                           dones=np.zeros((2, 1), bool), episode_dones=np.zeros((2, 1), bool)))
+    metrics = agent.update_parameters(replay, 1)
+    assert np.isfinite(metrics["sac/critic_loss"]), metrics
+    print("dmc path ok", sorted(replay.storage["obs"]))
+""")
+
+
+def test_dmc_path_runs_without_jax_and_dm_control(tmp_path):
+    out = subprocess.run([sys.executable, "-c", _DMC_PATH], env=_env(tmp_path), cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "dmc path ok ['pcd']" in out.stdout

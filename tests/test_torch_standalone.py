@@ -31,6 +31,8 @@ SLICE_CONFIG = osp.join(REPO, "configs/mfrl/sac/synthetic/pn_fake_manipulation.p
 DRQ_CONFIG = osp.join(REPO, "configs/mfrl/drq/synthetic/pn_jitter_fake_manipulation.py")
 VOXEL_CONFIG = osp.join(REPO, "configs/mfrl/drq/synthetic/sparse_conv_shift_fake_manipulation.py")
 RNN_CONFIG = osp.join(REPO, "configs/mfrl/sac/dm_control/pn_rnn.py")
+DMC_CONFIG = osp.join(REPO, "configs/mfrl/sac/dm_control/pn.py")
+WALKER_CONFIG = osp.join(REPO, "configs/mfrl/sac/dm_control/pn_walker_tpu.py")
 PORT_SOURCES = sorted(glob.glob(osp.join(REPO, "pointcloud_rl_torch", "**", "*.py"), recursive=True)
                       + [osp.join(REPO, "chip_smoke.py"), osp.join(REPO, "tools", "profile_torch_slice.py"),
                    osp.join(REPO, "tools", "vn_f32_gap.py")])
@@ -59,7 +61,7 @@ def test_no_port_source_imports_the_jax_package():
 def test_registries_are_the_ports_own():
     from pointcloud_rl_torch.algorithms import MFRL
     from pointcloud_rl_torch.env import device_replay  # noqa: F401  (registers DeviceReplayMemory)
-    from pointcloud_rl_torch.env.builder import ENVS, REPLAYS
+    from pointcloud_rl_torch.env.builder import ENVS, REPLAYS, ROLLOUTS
     from pointcloud_rl_torch.loggers import EXP_LOGGER
     from pointcloud_rl_torch.models import NETWORK
     from pointcloud_rl_torch.ops.augment import AUGMENTATIONS
@@ -74,6 +76,9 @@ def test_registries_are_the_ports_own():
         assert cfg["agent_cfg"]["actor_cfg"]["nn_cfg"]["visual_nn_cfg"]["type"] in NETWORK
     assert TorchConfig.fromfile(DRQ_CONFIG)["agent_cfg"]["obs_aug"]["type"] in AUGMENTATIONS
     assert TorchConfig.fromfile(RNN_CONFIG)["agent_cfg"]["actor_cfg"]["nn_cfg"]["rnn_cfg"]["type"] in NETWORK
+    walker = TorchConfig.fromfile(WALKER_CONFIG)
+    assert walker["agent_cfg"]["type"] in MFRL and walker["replay_cfg"]["type"] in REPLAYS
+    assert walker["rollout_cfg"]["type"] in ROLLOUTS and walker["env_cfg"]["type"] in ENVS
     # every agent, network and head type of the JAX package has its port
     from pointcloud_rl_torch.models import REGRESSION
     from pointcloud_rl_tpu.algorithms import MFRL as JAX_MFRL
@@ -91,8 +96,8 @@ def test_registries_are_the_ports_own():
     assert set(REPLAYS.module_dict) >= set(JAX_REPLAYS.module_dict) & {"ReplayMemory", "DeviceReplayMemory"}
 
 
-@pytest.mark.parametrize("path", [SLICE_CONFIG, DRQ_CONFIG, VOXEL_CONFIG, RNN_CONFIG],
-                         ids=["sac", "drq", "drq_voxel", "sac_rnn"])
+@pytest.mark.parametrize("path", [SLICE_CONFIG, DRQ_CONFIG, VOXEL_CONFIG, RNN_CONFIG, DMC_CONFIG, WALKER_CONFIG],
+                         ids=["sac", "drq", "drq_voxel", "sac_rnn", "dmc", "dmc_walker"])
 def test_config_loads_the_slice_config_like_the_original(path):
     got = TorchConfig.fromfile(path)
     want = JaxConfig.fromfile(path)
@@ -140,6 +145,104 @@ def test_native_indices_match_the_original():
     for seed in (0, 7, 2**40 + 3):
         np.testing.assert_array_equal(torch_native.seg_balanced_sample_indices(*args, seed),
                                       jax_native.seg_balanced_sample_indices(*args, seed))
+
+
+@pytest.mark.parametrize("valid", ["mask", "all"])
+@pytest.mark.parametrize("fix_base_z", [None, 0.0, -5.0], ids=["min_z", "fixed", "no_ground"])
+def test_native_dmc_sampler_matches_the_original(valid, fix_base_z):
+    """``unproject_depth`` and ``ground_body_split_sample`` (the DMC env's
+    native path) give the original's outputs bit for bit."""
+    rs = np.random.RandomState(4)
+    depth = (rs.rand(40, 32) * 6).astype(np.float32)
+    inv_k = np.linalg.inv(np.array([[38.6, 0, 15.5], [0, 38.6, 19.5], [0, 0, 1.0]]))
+    rot = np.linalg.qr(rs.randn(3, 3))[0]
+    xyz = torch_native.unproject_depth(depth, inv_k, rot, 1.25)
+    np.testing.assert_array_equal(xyz, jax_native.unproject_depth(depth, inv_k, rot, 1.25))
+    xyz = xyz.reshape(-1, 3)
+    rgb = rs.randint(0, 256, xyz.shape).astype(np.uint8)
+    mask = (depth.reshape(-1) <= 5.0).astype(np.uint8) if valid == "mask" else None
+    for seed in (0, 11, 2**40 + 1):
+        got = torch_native.ground_body_split_sample(xyz, rgb, mask, 0.2, 384, 128, seed, fix_base_z=fix_base_z)
+        want = jax_native.ground_body_split_sample(xyz, rgb, mask, 0.2, 384, 128, seed, fix_base_z=fix_base_z)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    if fix_base_z == -5.0:
+        assert (got[0][384:] == 0).all()  # no ground point: the ground side is zeroed
+
+
+class _FakeSpec:
+    minimum = np.full(6, -2.0)
+    maximum = np.full(6, 3.0)
+
+
+class _FakeSuiteEnv:
+    """What ``DMCEnv`` reads of a dm_control suite env, without a simulator:
+    the physics' camera and render settings, the task's RNG and a step."""
+
+    def __init__(self, seed):
+        from types import SimpleNamespace as NS
+
+        model = NS(vis=NS(quality=NS(offsamples=4)), cam_fovy=np.array([45.0]),
+                   cam_mat0=np.array([np.linalg.qr(np.random.RandomState(seed).randn(3, 3))[0].reshape(-1)]))
+        self.physics = NS(model=model, data=NS(cam_xpos=np.array([[0.3, -2.0, 1.1]])))
+        self.task = NS(_random=np.random.RandomState(seed))
+        self.actions = []
+
+    def action_spec(self):
+        return _FakeSpec()
+
+    def reset(self):
+        from types import SimpleNamespace as NS
+
+        return NS(observation={"a": np.zeros(2)})
+
+    def step(self, action):
+        from types import SimpleNamespace as NS
+
+        self.actions.append(np.array(action))
+        return NS(reward=0.5, last=lambda: len(self.actions) >= 3, discount=1.0, observation={"a": np.ones(2)})
+
+
+def _fake_render(seed):
+    def render(self, with_depth):
+        rs = np.random.RandomState(seed + len(self.env.actions))
+        depth = rs.uniform(0.5, 7.0, (24, 24)).astype(np.float32)
+        rgb = rs.randint(0, 256, (24, 24, 3)).astype(np.uint8)
+        return rgb, depth, depth <= self.max_depth
+    return render
+
+
+@pytest.mark.parametrize("mode, extra", [
+    ("pointcloud", dict(use_native=True)), ("pointcloud", dict(use_native=False)),
+    ("pointcloud", dict(num_ground=-1, n_points=300)), ("pointcloud", dict(fix_base_z=0.9, use_native=False)),
+    ("xyz-img", {}), ("rgbd", {}), ("depth", {}), ("raw", {})],
+    ids=["native", "numpy", "filter_seg", "fixed_base_z", "xyz_img", "rgbd", "depth", "raw"])
+def test_dmc_env_copy_matches_the_original(mode, extra, monkeypatch):
+    """``env/dmc.py`` against its original on the same renders, camera and
+    RNG, with no simulator: every observation mode, both samplers, and the
+    step's action rescale and time-limit handling."""
+    from pointcloud_rl_torch.env import dmc as t_dmc
+    from pointcloud_rl_tpu.env import dmc as j_dmc
+
+    outs = []
+    for mod in (t_dmc, j_dmc):
+        monkeypatch.setattr(mod.DMCEnv, "_render", _fake_render(3))
+        env = mod.DMCEnv(_FakeSuiteEnv(7), obs_mode=mode, image_size=(24, 24),
+                         **dict(dict(n_points=200, num_ground=50), **extra))
+        env.seed(7)
+        obs = [env.reset()]
+        for a in (np.full(6, 0.5), np.full(6, -1.5)):
+            o, r, d, _ = env.step(a)
+            obs.append((o, r, d))
+        outs.append((obs, env.env.actions))
+    (t_obs, t_acts), (j_obs, j_acts) = outs
+    np.testing.assert_array_equal(np.array(t_acts), np.array(j_acts))
+    for a, b in zip(t_obs, j_obs):
+        a, b = (a, b) if isinstance(a, dict) else (a[0], b[0])
+        assert sorted(a) == sorted(b)
+        for key in b:
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    assert t_obs[-1][1:] == j_obs[-1][1:]
 
 
 def _deaf_worker(conn):
