@@ -4,7 +4,8 @@
     python3 chip_smoke.py               # all phases, one card
     python3 chip_smoke.py --kernels-only
     python3 chip_smoke.py --only dmc    # the kernel phase, then only the named phases
-                                        # (runs, encoders, modules, dmc); no result line
+                                        # (runs, encoders, modules, dmc, dp); no result line
+    python3 chip_smoke.py --only dp --dp-nccl-ranks 4   # on a host of 4 cards
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -16,7 +17,7 @@ Phases (any failure exits non-zero and prints no result):
 3. Each kernel against its plain PyTorch version on the same inputs, at the
    training slices' encoder shapes (SAC f32, DrQ f32 and bf16, the
    recurrent target's 64 x 9 windows in f32; the recurrent critic's 64 x 8
-   rows are DrQ's 512), the act encode's (4 env workers, f32 and bf16),
+   rows are DrQ's 512; a data-parallel rank's 128 rows of SAC's 256), the act encode's (4 env workers, f32 and bf16),
    the walker encoder's (f32 and bf16) and the walker act's (16 env
    workers, bf16), then at edge shapes (one
    batch row, one point, ragged tails, widths that are no multiple of 16):
@@ -41,8 +42,8 @@ Phases (any failure exits non-zero and prints no result):
    with a host replay, in f32.  ``sac_rnn``: recurrent SAC on the SAC
    config with ``pn_rnn.py``'s recurrent settings (a GRU of 128 between
    PointNet and the heads, batch 64, ``TStepTransition`` windows of 8 on
-   the host replay).  ``ddpg``: DDPG/TD3 on the SAC config.  The DrQ runs
-   take 1500 env steps, the others 2000.  Each run starts a fresh
+   the host replay).  ``ddpg``: DDPG/TD3 on the SAC config.  The voxel run
+   takes 1000 env steps, the others 1500.  Each run starts a fresh
    process and resets its kernel launch counts to 0 just before it trains
    or evaluates; it writes them to ``run_summary.json``.  The PointNet runs
    must have launched both kernels in training (and the max-only one in
@@ -101,9 +102,30 @@ Phases (any failure exits non-zero and prints no result):
    trained agent's eval actions on 32 fused observations, card vs CPU
    (``ACTION_ATOL_BF16``, flips counted).  dm_control, MuJoCo and EGL are
    absent from the card's machine, hence the stand-in.
-10. One JSON line describing the encoders, one describing the modules, one
-   each for the DMC modules and the DMC run, one describing the kernels,
-   the card's name and power limit, then the result line
+10. Data parallel (``dp``), each run a fresh process (``--dp-worker``):
+   (a) two ranks on cuda:0 over gloo (NCCL runs one rank per GPU), (b) an
+   NCCL world of one (``--dp-nccl-ranks N`` on a host of N cards: N NCCL
+   ranks, one per card, which join with ``init_distributed`` from the
+   launcher environment, and then ``run_rl --num-devices N``), (a') the
+   two gloo ranks with a planted fault, the update's draws left unsharded,
+   and the plain 1-rank agent.  Each holds the SAC slice's agent at full
+   width (fused, global batch 256, f32) and a ``DeviceReplayMemory`` fed by
+   the lead's collection through ``replicate_rollout`` (seeded full-width
+   transitions, ``DPStubRollout``), then takes ``DP_UPDATES`` updates with
+   the noise on: the ranks' parameters must be bitwise equal; each update
+   must agree with the 1-rank update from the same state on the same
+   global batch (``DP_TOL`` but for Adam's flips, at most ``DP_FLIPS``
+   elements; metrics to ``UPDATE_METRIC_RTOL``), and every update of the
+   planted fault must fail that check; the free runs' gaps are printed; each rank must
+   launch each kernel once per update, on its rows.  Then ``DP_TIMED``
+   updates: ms per update of each world (correctness runs: gloo stages
+   through the host), ms of the gradient all-reduces per update and of the
+   transition broadcast per cycle.
+   (c) ``run_rl --profile 5`` on the SAC slice: its ``torch.profiler``
+   trace must name both body kernels.
+11. One JSON line describing the encoders, one describing the modules, one
+   each for the DMC modules, the DMC run and the dp phase, one describing
+   the kernels, the card's name and power limit, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Every time printed here was measured in this run, on the card named in
@@ -114,6 +136,7 @@ encoders' convolutions are f32 by their own setting (``ops/conv.py``).
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import math
@@ -139,16 +162,16 @@ RNN_OPTS = ["agent_cfg.actor_cfg.nn_cfg.rnn_cfg.type=GRU", "agent_cfg.actor_cfg.
 # The training runs of phase 4: (name, config, its --cfg-options, metric
 # prefix, whether its encoder is the fused PointNet: the runs that are must
 # launch both kernels, the others neither; env steps, checkpointed at half
-# and at the end).  The DrQ runs are cut to 1500 steps and the others to
-# 2000 to keep the script inside its time.
+# and at the end).  The PointNet runs are cut to 1500 steps and the voxel
+# run, the slowest per update, to 1000 to keep the script inside its time.
 RUNS = [
-    ("sac", SLICE_CONFIG, [FUSED, "replay_cfg.capacity=20000"], "sac", True, 2000),
-    ("sac_rnn", SLICE_CONFIG, [FUSED, *RNN_OPTS, "replay_cfg.capacity=20000"], "sac", True, 2000),
-    ("ddpg", SLICE_CONFIG, [FUSED, "agent_cfg.type=DDPG", "replay_cfg.capacity=20000"], "ddpg", True, 2000),
+    ("sac", SLICE_CONFIG, [FUSED, "replay_cfg.capacity=20000"], "sac", True, 1500),
+    ("sac_rnn", SLICE_CONFIG, [FUSED, *RNN_OPTS, "replay_cfg.capacity=20000"], "sac", True, 1500),
+    ("ddpg", SLICE_CONFIG, [FUSED, "agent_cfg.type=DDPG", "replay_cfg.capacity=20000"], "ddpg", True, 1500),
     ("drq_host", DRQ_CONFIG, [FUSED, "replay_cfg.capacity=20000"], "drq", True, 1500),
     ("drq_device", DRQ_CONFIG, [FUSED, "replay_cfg.type=DeviceReplayMemory",
                                 "replay_cfg.transfer_cfg.pack_features=True", "agent_cfg.bf16=True"], "drq", True, 1500),
-    ("drq_voxel", VOXEL_CONFIG, ["replay_cfg.capacity=20000"], "drq", False, 1500),
+    ("drq_voxel", VOXEL_CONFIG, ["replay_cfg.capacity=20000"], "drq", False, 1000),
 ]
 KERNEL_SOURCE = "pointcloud_rl_torch/csrc/pointnet_fused.cu"
 TPU_KERNELS = {
@@ -163,6 +186,7 @@ TPU_KERNELS = {
 # encode at 16 env workers), then edge shapes, checked only.
 SHAPES = [
     ("slice_f32", 256, 1200, 8, (128, 128, 256), "float32"),
+    ("dp_rank_f32", 128, 1200, 8, (128, 128, 256), "float32"),
     ("drq_f32", 512, 1200, 8, (128, 128, 256), "float32"),
     ("rnn_target_f32", 576, 1200, 8, (128, 128, 256), "float32"),
     ("drq_bf16", 512, 1200, 8, (128, 128, 256), "bfloat16"),
@@ -1463,6 +1487,448 @@ def dmc_reference(agent, agent_cfg, info) -> dict:
     return {"obs": REF_OBS, "max_abs_diff": err, "flips": flips, "limit": ACTION_ATOL_BF16}
 
 
+DP_UPDATES = 20  # updates of each data-parallel run, each held to a 1-rank update from the same state
+DP_TIMED = 10  # then updates in lockstep with nothing between them: ms per update
+DP_CAPACITY = 2048
+DP_FILL = (8, 128)  # pushes of 128 transitions before the updates
+DP_CYCLES = (10, 4)  # then collection cycles of 4 transitions (the config's n_steps): the broadcast per cycle
+DP_TOL = (2e-4, 2e-5)  # (rtol, atol) of tests/test_parallel.py: the mesh update against the single-device one
+DP_FREE_RUN = (1, 2, 3, 5, 10, 20)  # updates after which the free runs of a world and of 1 rank are compared
+DP_PROFILE_STEPS = 5
+# Each of a world's DP_UPDATES updates is held to the 1-rank update from the
+# same train state on the same global batch: the world's rank 0 keeps its
+# state (and its replay's index generator) before every update, and the
+# 1-rank process loads each one, takes one update and compares.  The two
+# differ only in the order of their f32 sums, which Adam turns into up to a
+# whole step (+-lr) on an element whose gradient is at the f32 noise floor:
+# so all but DP_FLIPS elements of every update must lie within DP_TOL, and
+# the update metrics within UPDATE_METRIC_RTOL.  The planted fault (the gloo
+# ranks again from the same start, each drawing its update's noise for its
+# own rows only) must fail the same check.  Two free runs (each from its own previous
+# state) are only reported: Adam and the max-pool's winners make their
+# difference grow after a few updates, as between any two f32 orders of one
+# training.  On the H100 (PERF.md) an honest world left at most 9 elements
+# of an update outside DP_TOL (4 NCCL ranks), the planted fault at least 483
+# (its first update, where Adam's step is lr * sign(g)): DP_FLIPS sits near
+# their geometric mean, 7x from each.
+DP_FLIPS = 64  # elements of an update (of 6.2 M) that may lie outside DP_TOL
+
+
+class DPStubRollout:
+    """The lead's collection in the dp phase: seeded transitions at the SAC
+    config's full width (1200 points, the env's obs shapes), pushed as a
+    rollout pushes them; ``replicate_rollout`` broadcasts each push."""
+
+    num_envs = 4
+
+    def __init__(self, obs_shape, seed: int = 0):
+        rs = np.random.RandomState(seed)
+        n = DP_FILL[0] * DP_FILL[1] + DP_CYCLES[0] * DP_CYCLES[1]
+
+        def obs():
+            out = {}
+            for k, shape in obs_shape.items():
+                shape = (n,) + ((shape,) if isinstance(shape, int) else tuple(shape))
+                out[k] = (rs.randint(0, 256, shape).astype(np.uint8) if k == "rgb"
+                          else (rs.rand(*shape) < 0.3).astype(np.float32) if k == "seg"
+                          else rs.randn(*shape).astype(np.float32))
+            return out
+
+        ends = (np.arange(n) % 50 == 49)[:, None]
+        self.data = dict(obs=obs(), next_obs=obs(), actions=np.clip(rs.randn(n, 8), -1, 1).astype(np.float32),
+                         rewards=rs.randn(n, 1).astype(np.float32), dones=ends, episode_dones=ends)
+        self.at = 0
+
+    def forward_with_policy(self, pi, num: int, replay=None, **kwargs):
+        lo, self.at = self.at, self.at + num
+        replay.push_batch({k: ({kk: vv[lo:self.at] for kk, vv in v.items()} if isinstance(v, dict) else v[lo:self.at])
+                           for k, v in self.data.items()})
+        return {}
+
+
+def train_state_on_host(agent) -> dict:
+    """The agent's whole train state (parameters, target, alpha, optimizers,
+    update counter, generator), copied to the host."""
+    import torch
+
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().clone()
+        if isinstance(x, dict):
+            return {k: host(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [host(v) for v in x]
+        return x
+
+    return host(agent.state_dict())
+
+
+def param_gap(got: dict, want: dict) -> tuple:
+    """(largest gap, its tensor, elements outside DP_TOL, elements) between
+    two train states' parameters, target and alpha."""
+    rtol, atol = DP_TOL
+    worst, worst_key, n_out, total = 0.0, None, 0, 0
+    for part in ("model", "target"):
+        for key, x in got[part].items():
+            y = want[part][key].double()
+            err = (x.double() - y).abs()
+            n_out += int((~(err <= atol + rtol * y.abs())).sum())  # a NaN counts as outside
+            total += err.numel()
+            if float(err.max()) > worst:
+                worst, worst_key = float(err.max()), f"{part}.{key}"
+    err = abs(float(got["log_alpha"]) - float(want["log_alpha"]))
+    n_out += int(not err <= atol + rtol * abs(float(want["log_alpha"])))
+    return worst, worst_key, n_out, total + 1
+
+
+def metric_gap(got: dict, want: dict) -> float:
+    return max(abs(x - want[k]) / (1 + abs(want[k])) for k, x in got.items())
+
+
+def check_worlds(agent, replay, steps: list, worlds: dict) -> dict:
+    """In the 1-rank process: each world's updates against one update of this
+    agent from the world's state before it, and the free runs compared."""
+    import torch
+
+    out = {}
+    for label, path in worlds.items():
+        world = torch.load(path, weights_only=False)
+        w_steps = torch.load(path + ".steps", weights_only=False)
+        stepwise = []
+        for u in range(DP_UPDATES):
+            state, index_gen = w_steps[u]
+            agent.load_state_dict(state)
+            replay.generator.set_state(index_gen)
+            metrics = agent.update_parameters(replay, u + 1)
+            stepwise.append((u + 1, *param_gap(train_state_on_host(agent), w_steps[u + 1][0]),
+                             metric_gap(world["metrics"][u], metrics)))
+        free = [(n, *param_gap(w_steps[n][0], steps[n][0])) for n in DP_FREE_RUN]
+        out[label] = {"stepwise": stepwise, "free": free}
+    return out
+
+
+def take_updates(agent, replay, rank: int) -> tuple:
+    """(metrics, states): ``DP_UPDATES`` updates with the noise on; rank 0
+    keeps the train state and the replay's index generator before each
+    update and after the last."""
+    metrics, steps = [], []
+    for u in range(DP_UPDATES):
+        if rank == 0:
+            steps.append((train_state_on_host(agent), replay.generator.get_state()))
+        metrics.append(agent.update_parameters(replay, u + 1))
+    if rank == 0:
+        steps.append((train_state_on_host(agent), replay.generator.get_state()))
+    return metrics, steps
+
+
+def fault_path(out_path: str) -> str:
+    return out_path[:-len(".pt")] + "_fault.pt"
+
+
+def dp_worker(mode: str, out_path: str) -> None:
+    """One process of the dp phase (``--dp-worker MODE OUT``): ``gloo`` a
+    rank on cuda:0 over gloo, ``nccl`` rank r on cuda:r over NCCL (a world
+    of one included; more ranks join with ``init_distributed`` from the
+    launcher environment), ``single`` the plain 1-rank agent.  Fills a
+    ``DeviceReplayMemory`` through the lead's collection (replicated by
+    ``replicate_rollout`` in a world), runs ``DP_UPDATES`` updates with the
+    noise on, counting the fused kernels' launches and the rows of each,
+    then ``DP_TIMED`` timed ones.  A gloo rank then goes back to its state
+    before the first update and takes the same updates with a planted fault
+    (its draws left unsharded), written to ``fault_path(OUT)``.  Rank 0
+    writes its train state before each update beside each result
+    (``.steps``); the 1-rank process checks the worlds named in
+    ``DP_WORLDS`` against them."""
+    import torch
+    import torch.distributed as dist
+
+    from pointcloud_rl_torch.algorithms import build_agent
+    from pointcloud_rl_torch.env import build_replay
+    from pointcloud_rl_torch.ops import pointnet_fused as pf
+    from pointcloud_rl_torch.parallel import init_distributed, replicate_rollout, setup_data_parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = int(os.environ["WORLD_SIZE"])
+    if mode == "gloo":  # gloo over CUDA tensors: two ranks on one card
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{os.environ['MASTER_PORT']}",
+                                world_size=world, rank=int(os.environ["RANK"]))
+    elif mode == "nccl":
+        torch.cuda.set_device(int(os.environ["RANK"]))
+        if world == 1:  # init_distributed joins nothing for a world of one
+            dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{os.environ['MASTER_PORT']}",
+                                    world_size=1, rank=0)
+        elif not init_distributed(device="cuda"):
+            fail("dp: init_distributed did not join the NCCL world from the environment")
+    agent_cfg, info, _ = resolved_agent_cfg(SLICE_CONFIG, [FUSED])
+    agent = build_agent(dict(agent_cfg, env_params=info, seed=0, device="cuda"))
+    replay = build_replay(dict(type="DeviceReplayMemory", capacity=DP_CAPACITY), dict(seed=0), device=agent.device)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    stub = DPStubRollout(info["obs_shape"]) if rank == 0 else None
+    rollout, reduce_s = stub, []
+    if mode != "single":
+        dp = setup_data_parallel(agent, dist.get_world_size(), replay=replay)
+        rollout = replicate_rollout(stub, dp)
+        reduce = dp.allreduce_grads
+
+        def timed_reduce(grads):  # the gradient all-reduce of an optimizer step, host clock
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = reduce(grads)
+            torch.cuda.synchronize()
+            reduce_s.append(time.perf_counter() - t0)
+            return out
+
+        dp.allreduce_grads = timed_reduce
+    for _ in range(DP_FILL[0]):
+        rollout.forward_with_policy(None, DP_FILL[1], replay)
+    broadcast_s = [rollout.forward_with_policy(None, DP_CYCLES[1], replay).get("_stats", {}).get("broadcast_time", 0.0)
+                   for _ in range(DP_CYCLES[0])]
+
+    rows: list = []
+    launch = pf._forward_kernel
+
+    def counted(x, params, compute_dtype, with_idx):
+        rows.append(("pointnet_fused_fwd_idx" if with_idx else "pointnet_fused_fwd_max", int(x.shape[0])))
+        return launch(x, params, compute_dtype, with_idx)
+
+    start = (train_state_on_host(agent), replay.generator.get_state())
+    pf._forward_kernel = counted
+    pf.reset_launch_counts()
+    metrics, steps = take_updates(agent, replay, rank)
+    launches = dict(pf.launch_counts)
+    pf._forward_kernel = launch
+    final = train_state_on_host(agent)
+
+    del reduce_s[:]
+    t_update = []
+    for u in range(DP_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        agent.update_parameters(replay, DP_UPDATES + u + 1)
+        torch.cuda.synchronize()
+        t_update.append(time.perf_counter() - t0)
+    result = {"final": {k: final[k] for k in ("model", "target", "log_alpha")}, "metrics": metrics,
+              "launches": launches, "rows": rows, "ms_per_update": 1e3 * float(np.median(t_update)),
+              "replay_len": len(replay), "allreduce_ms_per_update": 1e3 * sum(reduce_s) / DP_TIMED,
+              "allreduce_calls_per_update": len(reduce_s) / DP_TIMED,
+              "broadcast_ms_per_cycle": 1e3 * float(np.median(broadcast_s)),
+              "backend": dist.get_backend() if dist.is_initialized() else None,
+              "world": dist.get_world_size() if dist.is_initialized() else 1}
+    if mode == "single":
+        worlds = dict(w.split("=", 1) for w in os.environ["DP_WORLDS"].split(","))
+        result["checks"] = check_worlds(agent, replay, steps, worlds)
+    elif rank == 0:
+        torch.save(steps, out_path + ".steps")
+    torch.save(result, out_path)
+    if mode == "gloo":  # (a') the planted fault, from the same start: each rank draws for its own rows only
+        agent.load_state_dict(start[0])
+        replay.generator.set_state(start[1])
+        dp.sharded_draws = contextlib.nullcontext
+        f_metrics, f_steps = take_updates(agent, replay, rank)
+        f_final = train_state_on_host(agent)
+        torch.save({"final": {k: f_final[k] for k in ("model", "target", "log_alpha")}, "metrics": f_metrics},
+                   fault_path(out_path))
+        if rank == 0:
+            torch.save(f_steps, fault_path(out_path) + ".steps")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_dp_workers(work: str, mode: str, n: int, extra_env=None) -> list:
+    """``n`` processes of ``dp_worker(mode)``, started together; their results."""
+    import torch
+
+    port = str(_free_port())
+    procs, outs = [], []
+    for rank in range(n):
+        out = osp.join(work, f"dp_{mode}_{rank}.pt")
+        log = open(osp.join(work, f"dp_{mode}_{rank}.log"), "w")
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=port, WORLD_SIZE=str(n), RANK=str(rank),
+                   OMP_NUM_THREADS="1", **(extra_env or {}))  # as run_rl's ranks: host threads of two ranks contend
+        procs.append((subprocess.Popen([sys.executable, osp.abspath(__file__), "--dp-worker", mode, out], cwd=REPO,
+                                       env=env, stdout=log, stderr=subprocess.STDOUT, start_new_session=True), log))
+        outs.append(out)
+    for proc, log in procs:
+        try:
+            rc = proc.wait(timeout=300)
+        except subprocess.TimeoutExpired:
+            for p, _ in procs:
+                os.killpg(p.pid, 9)
+                p.wait()
+            rc = "timeout"
+        log.close()
+        if rc != 0:
+            with open(log.name) as f:
+                fail(f"dp worker {mode} exited with {rc}:\n{f.read()[-4000:]}")
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def dp_bitwise(a: dict, b: dict, name: str) -> None:
+    """Two ranks' parameters, target, alpha and metrics must be bitwise equal."""
+    import torch
+
+    for part in ("model", "target"):
+        for key, x in a["final"][part].items():
+            if not torch.equal(x, b["final"][part][key]):
+                fail(f"dp {name}: {part}.{key} is not bitwise equal")
+    if not torch.equal(a["final"]["log_alpha"], b["final"]["log_alpha"]) or a["metrics"] != b["metrics"]:
+        fail(f"dp {name}: log_alpha or the metrics differ")
+
+
+def check_dp_launches(name: str, res: dict, rows_per_launch: int) -> None:
+    """Exactly one critic encode (with the argmax) and one next-obs encode
+    (max only) per update, each on this rank's rows."""
+    want = {"pointnet_fused_fwd_idx": DP_UPDATES, "pointnet_fused_fwd_max": DP_UPDATES}
+    if res["launches"] != want:
+        fail(f"dp {name}: kernel launches {res['launches']}, expected {want}")
+    bad = [r for r in res["rows"] if r[1] != rows_per_launch]
+    if bad or len(res["rows"]) != 2 * DP_UPDATES:
+        fail(f"dp {name}: launches at {sorted(set(res['rows']))}, expected {rows_per_launch} rows each")
+
+
+def report_world(label: str, checks: dict) -> dict:
+    """Print a world's gaps to 1 rank; ``agrees``: each update from the same
+    state within DP_TOL but for DP_FLIPS elements, its metrics within
+    UPDATE_METRIC_RTOL."""
+    for n, worst, key, n_out, total in checks["free"]:
+        print(f"[dp] {label}, free runs after {n} updates: largest gap to 1 rank {worst:.3e} ({key}); "
+              f"{n_out} of {total} elements outside rtol {DP_TOL[0]} atol {DP_TOL[1]}", flush=True)
+    step = checks["stepwise"]
+    u, worst, key, _, total, _ = max(step, key=lambda s: s[1])
+    n_out, most_out, least_out = sum(s[3] for s in step), max(s[3] for s in step), min(s[3] for s in step)
+    over = sum(s[3] > DP_FLIPS for s in step)
+    m = max(s[5] for s in step)
+    agrees = most_out <= DP_FLIPS and m <= UPDATE_METRIC_RTOL
+    print(f"[dp] {label}, each of {DP_UPDATES} updates against 1 rank from the same state: largest gap {worst:.3e} "
+          f"({key}, update {u}); {n_out} elements outside rtol {DP_TOL[0]} atol {DP_TOL[1]} in {DP_UPDATES} x "
+          f"{total} ({least_out} to {most_out} in one update, limit {DP_FLIPS}, {over} updates over it); "
+          f"largest update-metric gap "
+          f"{m:.3e} relative (limit {UPDATE_METRIC_RTOL}): {'agrees' if agrees else 'differs'}", flush=True)
+    return {"agrees": agrees, "stepwise_max_gap": worst, "stepwise_outside_tol": n_out,
+            "stepwise_outside_tol_per_update": [least_out, most_out], "updates_over_limit": over,
+            "stepwise_metric_gap": m,
+            "free_run": {n: {"max": w, "outside_tol": o} for n, w, _, o, _ in checks["free"]}}
+
+
+def phase_dp(card: str, nccl_ranks: int = 1) -> dict:
+    """Data parallel: (a) two ranks on cuda:0 over gloo against one rank,
+    (b) ``nccl_ranks`` NCCL ranks, one per card (a world of one on one
+    card), through the same path, (c) ``run_rl --profile`` on the SAC
+    config, (d) with more than one card, ``run_rl --num-devices``; (a')
+    the gloo ranks' planted fault against one rank."""
+    import torch
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_", dir=osp.join(REPO, "build"))
+    try:
+        t0 = time.monotonic()
+        gloo = run_dp_workers(work, "gloo", 2)
+        ranks = run_dp_workers(work, "nccl", nccl_ranks)
+        fault = [torch.load(fault_path(osp.join(work, f"dp_gloo_{r}.pt")), weights_only=False) for r in (0, 1)]
+        one, = run_dp_workers(work, "single", 1, {"DP_WORLDS": f"gloo={work}/dp_gloo_0.pt,nccl={work}/dp_nccl_0.pt,"
+                                                                f"gloo_fault={fault_path(f'{work}/dp_gloo_0.pt')}"})
+        runs_s = time.monotonic() - t0
+        r0, nccl = gloo[0], ranks[0]
+        print(f"[dp] ms per update (correctness runs; gloo stages through the host): world 1 "
+              f"{one['ms_per_update']:.2f}, world 2 gloo {r0['ms_per_update']:.2f} / {gloo[1]['ms_per_update']:.2f}, "
+              f"world {nccl_ranks} NCCL {nccl['ms_per_update']:.2f}; gradient all-reduce "
+              f"{r0['allreduce_ms_per_update']:.2f} ms per update over {r0['allreduce_calls_per_update']:.0f} calls "
+              f"(gloo), {nccl['allreduce_ms_per_update']:.3f} (NCCL, {nccl_ranks} ranks); transition broadcast "
+              f"{r0['broadcast_ms_per_cycle']:.2f} ms per cycle of {DP_CYCLES[1]} (gloo), "
+              f"{nccl['broadcast_ms_per_cycle']:.2f} (NCCL, {nccl_ranks} ranks); workers {runs_s:.1f} s on {card}",
+              flush=True)
+        want_len = DP_FILL[0] * DP_FILL[1] + DP_CYCLES[0] * DP_CYCLES[1]
+        if any(res["replay_len"] != want_len for res in (*gloo, *ranks, one)):
+            fail(f"dp: replay lengths {[res['replay_len'] for res in (*gloo, *ranks, one)]}, expected {want_len}")
+        dp_bitwise(r0, gloo[1], "gloo rank 0 vs rank 1")
+        dp_bitwise(fault[0], fault[1], "planted fault, gloo rank 0 vs rank 1")
+        for i, other in enumerate(ranks[1:], 1):
+            dp_bitwise(nccl, other, f"NCCL rank 0 vs rank {i}")
+        for name, res, rows in (("gloo rank 0", r0, 128), ("gloo rank 1", gloo[1], 128), ("single", one, 256),
+                                *((f"NCCL rank {i}", res, 256 // nccl_ranks) for i, res in enumerate(ranks))):
+            check_dp_launches(name, res, rows)
+        if not (r0["backend"] == "gloo" and r0["world"] == 2 and nccl["backend"] == "nccl"
+                and nccl["world"] == nccl_ranks):
+            fail(f"dp: backends {r0['backend']}/{nccl['backend']}")
+        if r0["allreduce_calls_per_update"] <= 0 or nccl["allreduce_calls_per_update"] <= 0:
+            fail("dp: no gradient all-reduce ran")
+        bad = [(u, k) for res in (r0, one, nccl) for u, m in enumerate(res["metrics"]) for k, v in m.items()
+               if not math.isfinite(v)]
+        if bad:
+            fail(f"dp: non-finite metrics {bad[:5]}")
+        gaps = {"gloo": report_world("2 gloo ranks", one["checks"]["gloo"]),
+                "nccl": report_world(f"{nccl_ranks} NCCL ranks", one["checks"]["nccl"]),
+                "planted_fault": report_world("2 gloo ranks, draws unsharded (planted fault)",
+                                              one["checks"]["gloo_fault"])}
+        for name in ("gloo", "nccl"):
+            if not gaps[name]["agrees"]:
+                fail(f"dp {name}: updates from the same state differ from 1 rank")
+        if gaps["planted_fault"]["updates_over_limit"] != DP_UPDATES:
+            fail(f"dp: the check passed {DP_UPDATES - gaps['planted_fault']['updates_over_limit']} updates of the "
+                 "planted fault (unsharded draws)")
+        print(f"[dp] SAC slice at full width ({SLICE_CONFIG}, fused, global batch 256, f32), {DP_UPDATES} updates "
+              f"with the noise on, a DeviceReplayMemory per rank fed by the lead's {DP_FILL[0]} + {DP_CYCLES[0]} "
+              f"pushes: the ranks bitwise equal; kernel launches per gloo rank {r0['launches']} at 128 rows, per "
+              f"NCCL rank {nccl['launches']} at {256 // nccl_ranks} rows", flush=True)
+
+        # (c) --profile on the SAC slice: the trace must name both kernels
+        root = osp.join(work, "profile_run")
+        run_cli(SLICE_CONFIG, ["--work-dir", root, "--seed", "0", "--device", "cuda", "--profile",
+                               str(DP_PROFILE_STEPS), "--cfg-options", FUSED, "replay_cfg.capacity=4096",
+                               "train_cfg.warm_steps=512", "train_cfg.total_steps=540", "train_cfg.n_log=500",
+                               "train_cfg.n_checkpoint=-1", "train_cfg.exp_logger_cfg.type=csv",
+                               "eval_cfg.save_video=False", "eval_cfg.num=1"],
+                osp.join(work, "profile_run.log"), timeout=240)
+        with open(osp.join(root, "0", "profile", "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = {}
+        for e in events:
+            if e.get("cat") == "kernel":
+                for kname in ("pointnet_body_idx_kernel", "pointnet_body_max_kernel"):
+                    if kname in e.get("name", ""):
+                        kernels[kname] = kernels.get(kname, 0) + 1
+        if set(kernels) != {"pointnet_body_idx_kernel", "pointnet_body_max_kernel"}:
+            fail(f"dp: the --profile trace names the fused kernels {kernels}, not both")
+        n_kernel = sum(1 for e in events if e.get("cat") == "kernel")
+        print(f"[dp] run_rl --profile {DP_PROFILE_STEPS}: {len(events)} trace events, {n_kernel} device kernels, "
+              f"fused body kernels {kernels}", flush=True)
+        if nccl_ranks > 1:  # (d) the CLI's own ranks, one per card
+            root = osp.join(work, "ranks_run")
+            run_cli(SLICE_CONFIG, ["--work-dir", root, "--seed", "0", "--device", "cuda", "--num-devices",
+                                   str(nccl_ranks), "--cfg-options", FUSED, "replay_cfg.capacity=4096",
+                                   "train_cfg.warm_steps=512", "train_cfg.total_steps=640", "train_cfg.n_log=64",
+                                   "train_cfg.n_checkpoint=576", "train_cfg.n_eval=576",
+                                   "train_cfg.exp_logger_cfg.type=csv", "eval_cfg.save_video=False", "eval_cfg.num=1"],
+                    osp.join(work, "ranks_run.log"), timeout=300)
+            summary = read_summary(osp.join(root, "0"))
+            if summary["world_size"] != nccl_ranks or summary["steps"] != 640:
+                fail(f"dp: run_rl --num-devices {nccl_ranks} summary {summary}")
+            check_launches("ranks", "training", summary["launches"], True, TPU_KERNELS)
+            models = sorted(os.listdir(osp.join(root, "0", "models")))
+            if models != ["model_576", "model_final"]:
+                fail(f"dp: run_rl --num-devices {nccl_ranks} wrote {models}")
+            print(f"[dp] run_rl --num-devices {nccl_ranks} --device cuda: {summary['steps']} env steps, "
+                  f"{summary['grad_steps']} updates, {summary['updates_per_s']:.1f} updates/s, rank 0's launches "
+                  f"{summary['launches']}, checkpoints {models}, eval at 576 on {card}", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"world2_gloo": {k: r0[k] for k in ("launches", "ms_per_update", "allreduce_ms_per_update",
+                                                 "broadcast_ms_per_cycle")},
+            "world2_gloo_rank1_ms_per_update": gloo[1]["ms_per_update"],
+            "world1_ms_per_update": one["ms_per_update"],
+            f"world{nccl_ranks}_nccl": {k: nccl[k] for k in ("launches", "ms_per_update", "allreduce_ms_per_update",
+                                                            "broadcast_ms_per_cycle")},
+            "gaps": gaps, "profile_kernel_events": kernels,
+            "launches": {k: sum(res["launches"][k] for res in (*gloo, *ranks)) for k in TPU_KERNELS}}
+
+
 def main() -> int:
     if not osp.isdir(osp.join(REPO, "pointcloud_rl_torch")):
         fail(f"the port's package is not beside {__file__}; run from a checkout of the repo")
@@ -1474,8 +1940,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
     argv = sys.argv[1:]
+    if "--dp-worker" in argv:  # a process of the dp phase
+        at = argv.index("--dp-worker")
+        dp_worker(argv[at + 1], argv[at + 2])
+        return 0
     kernels_only = "--kernels-only" in argv
-    # --only PHASE[,PHASE]: runs, encoders, modules, dmc (the kernel phase always runs)
+    # --only PHASE[,PHASE]: runs, encoders, modules, dmc, dp (the kernel phase always runs)
     only = set(argv[argv.index("--only") + 1].split(",")) if "--only" in argv else None
 
     def wanted(phase: str) -> bool:
@@ -1540,6 +2010,15 @@ def main() -> int:
         by_run["dmc"] = dmc["launches"]
         print(json.dumps({"dmc": dmc}), flush=True)
         print(f"[time] through the dmc run: {time.monotonic() - t0:.1f} s", flush=True)
+    if wanted("dp"):
+        # --dp-nccl-ranks N: the NCCL runs span N cards (one per rank), with a run_rl --num-devices N
+        nccl_ranks = int(argv[argv.index("--dp-nccl-ranks") + 1]) if "--dp-nccl-ranks" in argv else 1
+        if torch.cuda.device_count() < nccl_ranks:
+            fail(f"--dp-nccl-ranks {nccl_ranks}: {torch.cuda.device_count()} cards")
+        dp = phase_dp(card, nccl_ranks)
+        by_run["dp"] = dp["launches"]
+        print(json.dumps({"dp": dp}), flush=True)
+        print(f"[time] through the dp phase: {time.monotonic() - t0:.1f} s", flush=True)
 
     launches = {k: (sum(run[k] for run in by_run.values()) if by_run else None) for k in TPU_KERNELS}
     kernels = []
@@ -1555,7 +2034,8 @@ def main() -> int:
             "library_ms": None,  # no single PyTorch call computes body + LayerNorm + max-pool
             "launches_by_run": {name: run[kname] for name, run in by_run.items()},
             **{f"{shape}_{key}": shp[shape][key]
-               for shape in ("drq_f32", "drq_bf16", "rnn_target_f32", "act_f32", "act_bf16", "act_walker_bf16")
+               for shape in ("drq_f32", "drq_bf16", "rnn_target_f32", "act_f32", "act_bf16", "act_walker_bf16",
+                             "dp_rank_f32")
                for key in ("ms", "plain_ms", "bound_ms")},
             "walker_f32_ms": shp["walker_f32"]["ms"],
             "walker_bf16_ms": shp["walker_bf16"]["ms"],

@@ -1,7 +1,8 @@
 """Host-side agent plumbing (port of ``pointcloud_rl_tpu/algorithms/base.py``).
 
-An agent lives on one explicit ``device``: observations come in as numpy
-trees (or tensors), go to that device, and actions come back as numpy arrays.
+An agent lives on one ``device``, the card unless the caller asks for the
+CPU: observations come in as numpy trees (or tensors), go to that device,
+and actions come back as numpy arrays.
 """
 
 from __future__ import annotations
@@ -10,6 +11,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import DataParallel
 
 
 def example_obs_from_shape(obs_shape, batch: int = 1):
@@ -66,11 +69,13 @@ def pack_pointcloud_obs(obs: Dict[str, Any], spec=None):
 class BaseAgent:
     """Common host plumbing; algorithm classes implement ``act`` and the update."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device 'cuda' was asked for, but torch.cuda.is_available() is false")
+            raise RuntimeError("the agent's device is 'cuda' (the default), but torch.cuda.is_available() is "
+                               'false: pass device="cpu" to run it on the CPU')
         self.modules: Dict[str, torch.nn.Module] = {}
+        self.data_parallel = DataParallel()  # a world of one; parallel.setup_data_parallel makes it a rank
         self._rnn_states = None  # a recurrent agent's per-env state [B, L, H], threaded through act
         self.obs_transfer = None  # ObsTransferSpec (init_obs_transfer)
 

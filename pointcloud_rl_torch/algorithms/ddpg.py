@@ -52,7 +52,7 @@ class DDPG(SAC):
         if mode not in ("explore", "sample"):
             return super().act(obs, mode)
         out, _ = self.model.actor_apply(obs, mode="eval")
-        a = out + self.exploration_noise * standard_normal(out, self.generator)
+        a = out + self.exploration_noise * standard_normal(out, self.act_generator)
         bounds = self._bounds()
         return a if bounds is None else a.clamp(*bounds)
 

@@ -18,6 +18,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 import torch
 
 from ..convert import regex_path
+from ..parallel.mesh import DataParallel
 
 NamedParams = Sequence[Tuple[str, torch.Tensor]]
 
@@ -81,7 +82,11 @@ class Optimizer:
     """The optimizer a config names (Adam, AdamW, SGD, RMSprop, each as its
     optax counterpart), over the parameters the config trains, with
     optional global-norm clipping (``max_grad_norm``) of their gradients
-    before the step."""
+    before the step.  A data-parallel rank (``data_parallel``, set by
+    ``parallel.setup_data_parallel``) all-reduces the gradients first, so
+    the clip sees the global gradient, as optax does."""
+
+    data_parallel = DataParallel()  # a world of one: the all-reduce is the identity
 
     def __init__(self, optim_cfg: Optional[dict], named_params: NamedParams):
         cfg = dict(optim_cfg or {"type": "Adam", "lr": 3e-4})
@@ -106,12 +111,24 @@ class Optimizer:
             raise NotImplementedError(f"optimizer {kind!r}: options {sorted(cfg)} are not ported to "
                                       "pointcloud_rl_torch")
 
-    def step(self, grads: Sequence[Optional[torch.Tensor]]) -> None:
+    def step(self, grads: Sequence[Optional[torch.Tensor]],
+             extra: Sequence[Optional[torch.Tensor]] = ()) -> Tuple[List[torch.Tensor], List[Optional[torch.Tensor]]]:
         """One step with ``grads`` aligned to ``self.params`` (None = zero,
-        as a leaf without a gradient gets a zero update from optax)."""
-        if self.opt is None:
-            return
+        as a leaf without a gradient gets a zero update from optax).
+        ``extra``: gradients of leaves this optimizer does not train, which a
+        grad norm still counts; a data-parallel rank reduces them in the same
+        all-reduce.  Returns (the gradients stepped with, before the clip;
+        ``extra``), both averaged over the ranks."""
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
+        extra = list(extra)
+        present = [i for i, g in enumerate(extra) if g is not None]
+        reduced = self.data_parallel.allreduce_grads(grads + [extra[i] for i in present])
+        grads = reduced[:len(grads)]
+        for i, g in zip(present, reduced[len(grads):]):
+            extra[i] = g
+        if self.opt is None:
+            return grads, extra
+        stepped = grads
         if self.max_grad_norm is not None:
             # optax.clip_by_global_norm: g / |g| * max_norm unless |g| < max_norm
             g_norm = global_grad_norm(grads)
@@ -122,6 +139,7 @@ class Optimizer:
         self.opt.step()
         for p in self.params:
             p.grad = None
+        return stepped, extra
 
     def state_dict(self):
         return self.opt.state_dict() if self.opt is not None else {}

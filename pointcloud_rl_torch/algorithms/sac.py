@@ -83,7 +83,7 @@ class SAC(BaseAgent):
         bf16: bool = False,
         stale_actor_feature: bool = False,
         obs_transfer_cfg: Optional[dict] = None,
-        device="cpu",
+        device="cuda",
     ):
         super().__init__(device)
         self.init_obs_transfer(obs_transfer_cfg, env_params["obs_shape"])
@@ -132,7 +132,10 @@ class SAC(BaseAgent):
                                    generator=init_gen)
         self.model = model.to(self.device)
         self.target = self.model.make_target()
-        self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
+        self.seed = int(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        # ``act``'s draws; a data-parallel agent gives them a stream of their own
+        self.act_generator = self.generator
         self.modules = {"model": self.model, "target": self.target}
 
         action_shape = env_params["action_shape"]
@@ -173,14 +176,14 @@ class SAC(BaseAgent):
     def act(self, obs, mode: str) -> torch.Tensor:
         head_mode = "eval" if mode in ("eval", "mean") else "explore"
         if self.inference_aug is not None and isinstance(obs, dict):
-            obs = self.inference_aug(self.generator, obs)
+            obs = self.inference_aug(self.act_generator, obs)
         if not self.model.is_recurrent:
-            out, _ = self.model.actor_apply(obs, mode=head_mode, generator=self.generator)
+            out, _ = self.model.actor_apply(obs, mode=head_mode, generator=self.act_generator)
             return out
         leaf = obs if not isinstance(obs, dict) else next(iter(obs.values()))
         if self._rnn_states is None or self._rnn_states.shape[0] != leaf.shape[0]:
             self._rnn_states = self.model.rnn.initial_state(leaf.shape[0], self.device)
-        out, _, self._rnn_states = self.model.actor_apply(obs, mode=head_mode, generator=self.generator,
+        out, _, self._rnn_states = self.model.actor_apply(obs, mode=head_mode, generator=self.act_generator,
                                                           rnn_states=self._rnn_states, rnn_mode="with_states")
         return out
 
@@ -207,9 +210,22 @@ class SAC(BaseAgent):
                 batch[key] = self._device_obs(batch[key])
         return batch
 
+    def set_data_parallel(self, dp) -> None:
+        """Make this agent a rank of ``dp`` (``parallel.setup_data_parallel``):
+        its optimizers all-reduce their gradients, its update keeps this
+        rank's rows of the global batch, and ``act`` draws from a generator
+        of its own, since only the lead acts and the update's generator must
+        stay in the same state on every rank."""
+        self.data_parallel = dp
+        for tx in (self.critic_tx, self.actor_tx, self.alpha_tx):
+            tx.data_parallel = dp
+        self.act_generator = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+
     def update_parameters(self, memory, updates: int) -> Dict[str, float]:
         """One gradient step on a batch sampled from ``memory`` (a host or a
-        device replay; a recurrent model samples ``[B, H]`` windows)."""
+        device replay; a recurrent model samples ``[B, H]`` windows).  A
+        data-parallel rank samples and prepares the global batch, updates on
+        its rows and averages the metrics over the ranks."""
         if self.model.is_recurrent:
             if not hasattr(memory, "sample_windows"):
                 raise TypeError("Recurrent agents need T-step window sampling: use the host ReplayMemory with "
@@ -217,10 +233,13 @@ class SAC(BaseAgent):
             sampled = memory.sample_windows(self.batch_size, getattr(memory.sampling, "horizon", 8))
         else:
             sampled = memory.sample(self.batch_size)
-        metrics = self._update_step(self._prepare_batch(sampled))
+        dp = self.data_parallel
+        with dp.sharded_draws():
+            metrics = self._update_step(dp.shard(self._prepare_batch(sampled)))
         keys = sorted(metrics)
-        values = torch.stack([metrics[k].detach().float().reshape(()) for k in keys]).cpu().tolist()
-        out = dict(zip(keys, values))
+        vec = torch.stack([metrics[k].detach().float().reshape(()) for k in keys])
+        vec = dp.reduce_metrics(vec, [k.endswith("/max_critic_abs_err") for k in keys])
+        out = dict(zip(keys, vec.cpu().tolist()))
         p = self.metric_prefix
         if out.pop(f"{p}/actor_updated") < 0.5:
             for k in _ACTOR_KEYS:
@@ -300,12 +319,13 @@ class SAC(BaseAgent):
         trains.  Returns the gradients that count in the grad norm: all,
         or those under the top-level keys ``norm_keys``."""
         names = [n for n, _ in named]
-        grads = grads_of(loss, [p for _, p in named])
-        by_name = dict(zip(names, grads))
-        tx.step([by_name[n] for n in tx.names])
-        if norm_keys is None:
-            return grads
-        return [g for n, g in by_name.items() if n.split(".")[0] in norm_keys]
+        by_name = dict(zip(names, grads_of(loss, [p for _, p in named])))
+        trained = set(tx.names)
+        rest = [n for n in names if n not in trained]
+        stepped, extra = tx.step([by_name[n] for n in tx.names], [by_name[n] for n in rest])
+        by_name.update(zip(tx.names, stepped))  # a data-parallel rank's are averaged over the ranks
+        by_name.update(zip(rest, extra))
+        return [g for n, g in by_name.items() if norm_keys is None or n.split(".")[0] in norm_keys]
 
     def _update_step(self, batch) -> Dict[str, torch.Tensor]:
         if self.model.is_recurrent:
@@ -365,7 +385,7 @@ class SAC(BaseAgent):
         and no ``pre_process`` runs, as in the JAX package."""
         model = self.model
         is_valid = batch["is_valid"][..., None].float()  # [B, H, 1]
-        n_valid = is_valid.sum()
+        n_valid = batch.get("valid_frames", is_valid.sum())  # a data-parallel shard's normaliser
         next_seq = tree_map(lambda o, n: torch.cat([o[:, :1], n], dim=1), batch["obs"], batch["next_obs"])
         # A target that owns only the critic reads the live encoder and rnn,
         # from the same zero state: its feature IS the actor's, so it is
@@ -429,6 +449,7 @@ class SAC(BaseAgent):
             "alpha_opt": self.alpha_tx.state_dict(),
             "updates": self.updates,
             "generator": self.generator.get_state(),
+            "act_generator": self.act_generator.get_state(),
             "generator_device": self.generator.device.type,
         }
 
@@ -445,3 +466,5 @@ class SAC(BaseAgent):
         # moved to another kind of device keeps this agent's own stream.
         if state.get("generator_device") == self.generator.device.type:
             self.generator.set_state(state["generator"].cpu())
+            if self.act_generator is not self.generator and "act_generator" in state:
+                self.act_generator.set_state(state["act_generator"].cpu())

@@ -60,7 +60,8 @@ class DeviceReplayMemory:
             if not self.transfer_cfg:
                 self.transfer_cfg = None
         self._synth_pos = None  # (rows, points per frame) of a stripped pos_encoding
-        self.generator = torch.Generator(device=self.device).manual_seed(int(seed or 0))
+        self.seed = int(seed or 0)
+        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
         self._traj_cache: Dict[int, list] = {}
 
     def __len__(self) -> int:
@@ -79,7 +80,7 @@ class DeviceReplayMemory:
 
     def _upload(self, tree):
         def _one(x):
-            return x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x)).to(self.device)
+            return (x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))).to(self.device)
 
         return tree_map(_one, tree)
 
@@ -164,6 +165,19 @@ class DeviceReplayMemory:
         raise NotImplementedError("DeviceReplayMemory.load_hdf5 is not ported to pointcloud_rl_torch yet "
                                   "(ROADMAP.md queue A, item A1: the h5py replay extras)")
 
-    def place_on(self, sharding) -> None:
-        raise NotImplementedError("DeviceReplayMemory.place_on (data-parallel placement) is not ported to "
-                                  "pointcloud_rl_torch yet (ROADMAP.md queue A, item A6)")
+    def place_on(self, device) -> None:
+        """Keep this replica on ``device``, a data-parallel rank's own
+        (``parallel.setup_data_parallel``).  Every rank holds a replica with
+        the same seed and the same pushes, so all draw the same indices:
+        the JAX package's replicated storage, at N times the memory.  A
+        move to another device starts the index stream anew from the seed,
+        so it is made before the first sample."""
+        device = torch.device(device)
+        if device == self.device:
+            return
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"place_on({device}): torch.cuda.is_available() is false")
+        self.device = device
+        if self.storage is not None:
+            self.storage = tree_map(lambda x: x.to(device), self.storage)
+        self.generator = torch.Generator(device=device).manual_seed(self.seed)

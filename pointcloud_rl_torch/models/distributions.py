@@ -6,7 +6,9 @@ correction), ScaledNormal, and the categorical helpers of discrete SAC.
 Log-probs sum over the last (action) axis.  Every draw comes from an
 explicit ``torch.Generator`` on the tensors' device, through one function
 per kind of draw (``standard_normal``, ``standard_gumbel``), so a test
-can pin the noise by patching the sampler that calls it.
+can pin the noise by patching the sampler that calls it.  The draws are
+over the batch axis (``utils.draws.draw_rows``), so a data-parallel rank
+draws the global batch's noise and keeps its rows.
 """
 
 from __future__ import annotations
@@ -17,15 +19,17 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..utils.draws import draw_rows
+
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
 def standard_normal(like: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-    return torch.randn(like.shape, generator=generator, device=like.device, dtype=like.dtype)
+    return draw_rows(lambda s: torch.randn(s, generator=generator, device=like.device, dtype=like.dtype), like.shape)
 
 
 def standard_gumbel(like: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-    u = torch.rand(like.shape, generator=generator, device=like.device, dtype=like.dtype)
+    u = draw_rows(lambda s: torch.rand(s, generator=generator, device=like.device, dtype=like.dtype), like.shape)
     tiny = torch.finfo(like.dtype).tiny
     return -torch.log(-torch.log(u.clamp_min(tiny)))
 

@@ -11,6 +11,8 @@ one method (``sample_info`` or a small ``_draw_*``), so a test can inject
 the same values into both packages.  A JAX key is folded once per
 transform and per key; here each transform and key draws from the
 generator in turn, which gives independent draws in the same order.
+Draws over the batch axis go through ``utils.draws.draw_rows``, so a
+data-parallel rank draws for the global batch and keeps its rows.
 
 Layout contract: point clouds are channel-first ``[B, 3, N]`` leaves (env
 contract), robot state vectors ``[B, 3]``/``[B, 2]``, images ``[B, C, H, W]``.
@@ -28,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..registry import Registry, build_from_cfg
+from ..utils.draws import draw_rows
 from ..utils.tree_ops import tree_map
 
 AUGMENTATIONS = Registry("augmentation")
@@ -59,7 +62,7 @@ def _shallow_copy(data):
 
 def _uniform(generator, shape, low, high, device) -> torch.Tensor:
     """Uniform f32 in [low, high) drawn from ``generator`` on ``device``."""
-    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+    u = draw_rows(lambda s: torch.rand(s, generator=generator, device=device, dtype=torch.float32), shape)
     return u * (float(high) - float(low)) + float(low)
 
 
@@ -184,7 +187,7 @@ class GlobalRotScaleTrans(BaseAugmentation):
             rot = base * scale
         if self.translation_range is not None:
             trange = torch.as_tensor(self.translation_range, device=dev)
-            delta = (torch.rand((B, 3), generator=generator, device=dev) - 0.5) * 2.0 * trange
+            delta = (draw_rows(lambda s: torch.rand(s, generator=generator, device=dev), (B, 3)) - 0.5) * 2.0 * trange
             if not self.shift_height:
                 delta[..., 2] = 0.0
         else:
@@ -280,7 +283,7 @@ class RandomDownSampleAndFilter(BaseAugmentation):
         self.seg_key = next((k for k in func_keys if key_map(k) == "seg"), "seg")
 
     def _draw_scores(self, generator, shape, device) -> torch.Tensor:
-        return torch.rand(shape, generator=generator, device=device)
+        return draw_rows(lambda s: torch.rand(s, generator=generator, device=device), shape)
 
     def _frame_indices(self, generator, seg):
         """seg: [B, Nf] bool for ONE frame -> ([B, n_points] indices into
@@ -402,7 +405,8 @@ class AddOriginBall(BaseAugmentation):
         self.noise_std = noise_std
 
     def _draw_ball(self, generator, B, dtype, device) -> torch.Tensor:
-        return torch.randn((B, 3, self.n_pts), generator=generator, device=device, dtype=dtype) * self.noise_std
+        ball = draw_rows(lambda s: torch.randn(s, generator=generator, device=device, dtype=dtype), (B, 3, self.n_pts))
+        return ball * self.noise_std
 
     def __call__(self, generator, data):
         data = _shallow_copy(data)
@@ -448,7 +452,7 @@ class RandomChannelSwap(BaseAugmentation):
 
     def _draw_swap(self, generator, B, n_draw, device):
         """([B, n_draw] bool: swap this image, [3] permutation)."""
-        do = torch.rand((B, n_draw), generator=generator, device=device) <= self.prob
+        do = draw_rows(lambda s: torch.rand(s, generator=generator, device=device), (B, n_draw)) <= self.prob
         return do, torch.randperm(3, generator=generator, device=device)
 
     def apply_single(self, data, key, info, generator):
@@ -500,8 +504,8 @@ class RandomCrop(BaseAugmentation):
         th, tw = self.size
         h, w = self._pad(main_data).shape[-2:]
         batch_shape, dev = main_data.shape[:-3], main_data.device
-        i = torch.randint(0, h - th + 1, batch_shape, generator=generator, device=dev)
-        j = torch.randint(0, w - tw + 1, batch_shape, generator=generator, device=dev)
+        i = draw_rows(lambda s: torch.randint(0, h - th + 1, s, generator=generator, device=dev), batch_shape)
+        j = draw_rows(lambda s: torch.randint(0, w - tw + 1, s, generator=generator, device=dev), batch_shape)
         return i, j
 
     def apply_single(self, data, key, info, generator):

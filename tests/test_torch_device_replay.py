@@ -187,8 +187,12 @@ def test_port_draws_and_interface():
     assert batch["obs"]["pcd"].shape == (5, N_POINTS, 8) and batch["dones"].dtype == torch.bool
     with pytest.raises(NotImplementedError, match="A1"):
         mem.to_hdf5("x.h5")
-    with pytest.raises(NotImplementedError, match="A6"):
-        mem.place_on(None)
+    # a data-parallel rank's replica stays on the rank's device: here the CPU, where it is
+    mem.place_on(torch.device("cpu"))
+    assert mem.device.type == "cpu" and mem.storage["obs"]["pcd"].device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            mem.place_on("cuda")
     with pytest.raises(ValueError, match="pack_features"):
         DeviceReplayMemory(4, transfer_cfg=dict(pack_features="nonsense"), device="cpu")
 

@@ -8,7 +8,8 @@ and in every process it starts (the env workers included); then every
 ``pointcloud_rl_torch`` module is imported and the slices' CLI takes a few
 CPU steps with two env worker processes: SAC on a host replay, DrQ on
 a ``DeviceReplayMemory`` with packed bf16 storage and the bf16 agent flag,
-and DrQ with the voxel encoder; and the DMC path below the simulator (the
+and DrQ with the voxel encoder, and SAC on two data-parallel gloo ranks;
+and the DMC path below the simulator (the
 device fusion of raw renders, the walker recipe's agent with its obs
 transfer, a packed device replay, an update) runs with dm_control blocked.
 """
@@ -72,9 +73,10 @@ def test_every_module_imports_without_jax(tmp_path):
     out = subprocess.run([sys.executable, "-c", script], env=_env(tmp_path), cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    # every module of the package was imported (68 with the DMC env, the
-    # server env, and the fusion, camera and sampling ops)
-    assert int(out.stdout.split()[-1]) >= 68
+    # every module of the package was imported (73 with the DMC env, the
+    # server env, the fusion, camera and sampling ops, parallel/ and
+    # utils/draws.py)
+    assert int(out.stdout.split()[-1]) >= 73
 
 
 _FUSED = "agent_cfg.actor_cfg.nn_cfg.visual_nn_cfg.fused=True"
@@ -88,6 +90,8 @@ SLICES = {
     "sac_rnn": (SLICE_CONFIG, TINY_CLI + [_FUSED] + RNN_CLI + ["agent_cfg.batch_size=8", "train_cfg.warm_steps=112",
                                                               "train_cfg.total_steps=128"], "sac"),
     "ddpg": (SLICE_CONFIG, TINY_CLI + [_FUSED, "agent_cfg.type=DDPG"], "ddpg"),
+    # data parallel: two spawned gloo ranks (the flag ends --cfg-options)
+    "sac_two_ranks": (SLICE_CONFIG, TINY_CLI + [_FUSED, "--num-devices", "2"], "sac"),
 }
 
 

@@ -35,7 +35,7 @@ DMC_CONFIG = osp.join(REPO, "configs/mfrl/sac/dm_control/pn.py")
 WALKER_CONFIG = osp.join(REPO, "configs/mfrl/sac/dm_control/pn_walker_tpu.py")
 PORT_SOURCES = sorted(glob.glob(osp.join(REPO, "pointcloud_rl_torch", "**", "*.py"), recursive=True)
                       + [osp.join(REPO, "chip_smoke.py"), osp.join(REPO, "tools", "profile_torch_slice.py"),
-                   osp.join(REPO, "tools", "vn_f32_gap.py")])
+                   osp.join(REPO, "tools", "vn_f32_gap.py"), osp.join(REPO, "tests", "_torch_dp_worker.py")])
 
 
 def _imported_modules(path):
@@ -56,6 +56,16 @@ def test_no_port_source_imports_the_jax_package():
     bad = [(osp.relpath(p, REPO), m) for p in PORT_SOURCES for m in _imported_modules(p)
            if m.split(".")[0] == "pointcloud_rl_tpu"]
     assert not bad, bad
+
+
+def test_parallel_has_the_jax_packages_names():
+    """``parallel/`` ports the JAX package's data-parallel layer onto
+    ``torch.distributed``: every name but the two that build a jax mesh."""
+    import pointcloud_rl_torch.parallel as ours
+    import pointcloud_rl_tpu.parallel as theirs
+
+    assert set(theirs.__all__) - {"make_mesh", "data_parallel_shardings"} <= set(ours.__all__)
+    assert glob.glob(osp.join(REPO, "pointcloud_rl_torch", "parallel", "*.py"))[0] in PORT_SOURCES
 
 
 def test_registries_are_the_ports_own():
