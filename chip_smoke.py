@@ -4,7 +4,7 @@
     python3 chip_smoke.py               # all phases, one card
     python3 chip_smoke.py --kernels-only
     python3 chip_smoke.py --only dmc    # the kernel phase, then only the named phases
-                                        # (runs, encoders, modules, dmc, dp); no result line
+                                        # (runs, encoders, modules, dmc, dp, replay-io); no result line
     python3 chip_smoke.py --only dp --dp-nccl-ranks 4   # on a host of 4 cards
 
 Phases (any failure exits non-zero and prints no result):
@@ -43,7 +43,7 @@ Phases (any failure exits non-zero and prints no result):
    config with ``pn_rnn.py``'s recurrent settings (a GRU of 128 between
    PointNet and the heads, batch 64, ``TStepTransition`` windows of 8 on
    the host replay).  ``ddpg``: DDPG/TD3 on the SAC config.  The voxel run
-   takes 1000 env steps, the others 1500.  Each run starts a fresh
+   takes 1000 env steps, the others 1200.  Each run starts a fresh
    process and resets its kernel launch counts to 0 just before it trains
    or evaluates; it writes them to ``run_summary.json``.  The PointNet runs
    must have launched both kernels in training (and the max-only one in
@@ -123,10 +123,27 @@ Phases (any failure exits non-zero and prints no result):
    transition broadcast per cycle.
    (c) ``run_rl --profile 5`` on the SAC slice: its ``torch.profiler``
    trace must name both body kernels.
-11. One JSON line describing the encoders, one describing the modules, one
-   each for the DMC modules, the DMC run and the dp phase, one describing
-   the kernels, the card's name and power limit, then the result line
-   ``{"ok": true, "device": {...}}``.
+11. Replay persistence (``replay-io``), in this process, at the walker
+   recipe's full width: a ``DeviceReplayMemory`` of the config's 100000
+   packed bf16 transitions filled past one wrap by pushes of one seeded
+   host block of 4096 raw transitions whose rewards carry their global
+   index; the ``save_replay=50000`` snapshot through ``train_rl``'s own
+   ``replay_snapshot`` (the newest transitions in push order on the host,
+   held bitwise against the packed pushes and the indices; gather + D2H
+   timed); the restore into a fresh ring through ``load_hdf5``'s chunk loop
+   (``push_in_chunks``, 4096 rows, timed; the ring bitwise equal to the
+   snapshot); the restored rewards then set to seeded values on the
+   walker's scale ([0, 1]); one update from that ring card vs CPU from one state
+   on one batch, the noise pinned to zero (metrics to ``ACTION_ATOL_BF16``
+   relative); then ``train_rl`` offline (no rollout, ``n_steps=0``,
+   ``warm_steps=0``) for 20 x 16 updates, timed with CUDA events, both
+   kernels launched, every logged metric finite.  The HDF5 file between
+   snapshot and restore is host code that needs h5py, which the card's
+   machine lacks: ``tests/test_torch_replay_io.py`` holds it on the CPU.
+12. One JSON line describing the encoders, one describing the modules, one
+   each for the DMC modules, the DMC run, the dp phase and the replay-io
+   phase, one describing the kernels, the card's name and power limit, then
+   the result line ``{"ok": true, "device": {...}}``.
 
 Every time printed here was measured in this run, on the card named in
 phase 1.  The plain versions run with TF32 off
@@ -162,15 +179,16 @@ RNN_OPTS = ["agent_cfg.actor_cfg.nn_cfg.rnn_cfg.type=GRU", "agent_cfg.actor_cfg.
 # The training runs of phase 4: (name, config, its --cfg-options, metric
 # prefix, whether its encoder is the fused PointNet: the runs that are must
 # launch both kernels, the others neither; env steps, checkpointed at half
-# and at the end).  The PointNet runs are cut to 1500 steps and the voxel
-# run, the slowest per update, to 1000 to keep the script inside its time.
+# and at the end).  The PointNet runs are cut to 1200 steps and the voxel
+# run, the slowest per update, to 1000 to keep the script inside its time
+# (a run must pass 1000 steps: it logs every 500 after the 512-step warm-up).
 RUNS = [
-    ("sac", SLICE_CONFIG, [FUSED, "replay_cfg.capacity=20000"], "sac", True, 1500),
-    ("sac_rnn", SLICE_CONFIG, [FUSED, *RNN_OPTS, "replay_cfg.capacity=20000"], "sac", True, 1500),
-    ("ddpg", SLICE_CONFIG, [FUSED, "agent_cfg.type=DDPG", "replay_cfg.capacity=20000"], "ddpg", True, 1500),
-    ("drq_host", DRQ_CONFIG, [FUSED, "replay_cfg.capacity=20000"], "drq", True, 1500),
+    ("sac", SLICE_CONFIG, [FUSED, "replay_cfg.capacity=20000"], "sac", True, 1200),
+    ("sac_rnn", SLICE_CONFIG, [FUSED, *RNN_OPTS, "replay_cfg.capacity=20000"], "sac", True, 1200),
+    ("ddpg", SLICE_CONFIG, [FUSED, "agent_cfg.type=DDPG", "replay_cfg.capacity=20000"], "ddpg", True, 1200),
+    ("drq_host", DRQ_CONFIG, [FUSED, "replay_cfg.capacity=20000"], "drq", True, 1200),
     ("drq_device", DRQ_CONFIG, [FUSED, "replay_cfg.type=DeviceReplayMemory",
-                                "replay_cfg.transfer_cfg.pack_features=True", "agent_cfg.bf16=True"], "drq", True, 1500),
+                                "replay_cfg.transfer_cfg.pack_features=True", "agent_cfg.bf16=True"], "drq", True, 1200),
     ("drq_voxel", VOXEL_CONFIG, ["replay_cfg.capacity=20000"], "drq", False, 1000),
 ]
 KERNEL_SOURCE = "pointcloud_rl_torch/csrc/pointnet_fused.cu"
@@ -865,13 +883,16 @@ OPTIMIZERS = {
 }
 
 
-def compare_agents(name: str, cpu_agent, gpu_agent, cpu_metrics: dict, gpu_metrics: dict, lr: float) -> dict:
-    """Metrics of one update to UPDATE_METRIC_RTOL; every parameter inside
+def compare_agents(name: str, cpu_agent, gpu_agent, cpu_metrics: dict, gpu_metrics: dict, lr: float,
+                   metric_rtol: float = UPDATE_METRIC_RTOL) -> dict:
+    """Metrics of one update to ``metric_rtol``; every parameter inside
     the Adam envelope and >90% of each tensor's elements within 1e-4."""
+    metric_gap = 0.0
     for key, want in cpu_metrics.items():
         got = gpu_metrics[key]
-        if not math.isfinite(got) or abs(got - want) > UPDATE_METRIC_RTOL * (1 + abs(want)):
+        if not math.isfinite(got) or abs(got - want) > metric_rtol * (1 + abs(want)):
             fail(f"{name}: {key} card {got} vs CPU {want}")
+        metric_gap = max(metric_gap, abs(got - want) / (1 + abs(want)))
     envelope, worst, tight = 2 * lr * 1.01, 0.0, 1.0
     for which in ("model", "target"):
         gpu_sd = getattr(gpu_agent, which).state_dict()
@@ -881,8 +902,8 @@ def compare_agents(name: str, cpu_agent, gpu_agent, cpu_metrics: dict, gpu_metri
             if float(diff.max()) > envelope or share <= 0.9:
                 fail(f"{name}: {which}.{pname} card vs CPU max diff {float(diff.max()):.3e}, {share:.2%} tight")
             worst, tight = max(worst, float(diff.max())), min(tight, share)
-    return {"name": name, "metrics_checked": len(cpu_metrics), "param_max_abs_diff": worst,
-            "least_tight_share": tight}
+    return {"name": name, "metrics_checked": len(cpu_metrics), "metric_max_rel_diff": metric_gap,
+            "param_max_abs_diff": worst, "least_tight_share": tight}
 
 
 def twin_agents(cfg: dict):
@@ -1929,6 +1950,231 @@ def phase_dp(card: str, nccl_ranks: int = 1) -> dict:
             "launches": {k: sum(res["launches"][k] for res in (*gloo, *ranks)) for k in TPU_KERNELS}}
 
 
+# ------------------------------------------------------------ replay I/O
+# The walker recipe's replay persistence below the file (phase 11): the
+# ring of its config (100000 packed bf16 transitions) filled past one wrap,
+# the ``save_replay`` snapshot of its newest 50000 transitions, the restore
+# into a fresh ring through ``load_hdf5``'s chunk loop, then offline updates
+# of the walker agent from the restored ring.  The HDF5 write and read are
+# host code (h5py, absent from the card's machine): tests/test_torch_replay_io.py
+# holds them on the CPU.
+REPLAY_IO_BLOCK = 4096  # rows of the one seeded host block every fill push reuses
+REPLAY_IO_STEPS = 20  # offline train_rl iterations of the recipe's 16 updates
+REPLAY_IO_SEED = 0
+
+
+def walker_raw_block(n: int, seed: int) -> dict:
+    """``n`` raw full-width walker transitions as the rollout pushes them:
+    3 frames x 512 points, xyz f32, rgb uint8 and FrameStack's one-hot
+    pos_encoding (which the ring strips and re-synthesizes)."""
+    rs = np.random.RandomState(seed)
+    points = WALKER["n_points"] * WALKER["frames"]
+    pe = np.repeat(np.eye(WALKER["frames"], dtype=np.float32), WALKER["n_points"], axis=-1)
+
+    def obs():
+        return {"xyz": rs.uniform(-2, 2, (n, 3, points)).astype(np.float32),
+                "rgb": rs.randint(0, 256, (n, 3, points)).astype(np.uint8),
+                "pos_encoding": np.ascontiguousarray(np.broadcast_to(pe, (n,) + pe.shape))}
+
+    return dict(obs=obs(), next_obs=obs(), actions=rs.uniform(-1, 1, (n, WALKER["action_dim"])).astype(np.float32),
+                rewards=np.zeros((n, 1), np.float32), dones=rs.rand(n, 1) < 0.01, episode_dones=np.zeros((n, 1), bool))
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+class _MetricLog:
+    """An experiment logger that keeps what ``train_rl`` logs."""
+
+    def __init__(self):
+        self.rows = []
+
+    def log(self, values, step=None, tag=None):
+        self.rows.append(dict(values))
+
+    def close(self):
+        pass
+
+
+def phase_replay_io(pf, card: str) -> dict:
+    """Fill, snapshot, restore and train offline, at the walker recipe's
+    full width on the card, through the calls ``train_rl`` and ``run_rl``
+    make."""
+    import torch
+
+    from pointcloud_rl_torch.algorithms.obs_transfer import pack_device_features
+    from pointcloud_rl_torch.apis.train_rl import replay_snapshot, train_rl
+    from pointcloud_rl_torch.env import build_replay
+    from pointcloud_rl_torch.env.device_replay import CHUNK
+    from pointcloud_rl_torch.models import heads
+    from pointcloud_rl_torch.models import distributions as dist
+    from pointcloud_rl_torch.utils.tree_ops import tree_leaves, tree_map, tree_slice
+
+    agent_cfg, info, cfg = walker_agent_cfg()
+    n_snap, n_updates = cfg["train_cfg"]["save_replay"], cfg["train_cfg"]["n_updates"]
+    replay_cfg = cfg["replay_cfg"]
+    capacity = replay_cfg["capacity"]
+    pushes = capacity // REPLAY_IO_BLOCK + 2  # past one wrap, position not 0
+    t0 = time.monotonic()
+    block = walker_raw_block(REPLAY_IO_BLOCK, REPLAY_IO_SEED)
+    ring = build_replay(replay_cfg, dict(seed=REPLAY_IO_SEED), device="cuda")
+    torch.cuda.synchronize()
+    t_fill = time.monotonic()
+    for p in range(pushes):
+        block["rewards"][:, 0] = p * REPLAY_IO_BLOCK + np.arange(REPLAY_IO_BLOCK)
+        ring.push_batch(block)
+    torch.cuda.synchronize()
+    fill_s = time.monotonic() - t_fill
+    total = pushes * REPLAY_IO_BLOCK
+    if not (len(ring) == capacity and ring.position == total % capacity != 0
+            and set(ring.storage["obs"]) == {"pcd"} and ring.storage["obs"]["pcd"].dtype == torch.bfloat16):
+        fail(f"replay-io: the ring holds {len(ring)} at position {ring.position}, obs "
+             f"{ {k: (tuple(v.shape), v.dtype) for k, v in ring.storage['obs'].items()} }")
+    storage_gb = sum(x.nbytes for x in tree_leaves(ring.storage)) / 1e9
+    row_bytes = sum(x[0].nbytes for x in tree_leaves(ring.storage))
+    print(f"[replay-io] {WALKER_CONFIG}: ring of {capacity} packed bf16 transitions on the card, filled by {pushes} "
+          f"pushes of {REPLAY_IO_BLOCK} raw full-width transitions ({total}, position {ring.position}) in "
+          f"{fill_s:.2f} s; {row_bytes} bytes per stored transition", flush=True)
+
+    # -- the snapshot: the N newest transitions in push order, on the host
+    gather = []
+    real_tail = ring.tail
+
+    def timed_tail(num):  # replay_snapshot's own gather: device gather + device-to-host copy, in chunks
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        out = real_tail(num)
+        gather.append(time.monotonic() - t)
+        return out
+
+    ring.tail = timed_tail
+    try:
+        t1 = time.monotonic()
+        snap = replay_snapshot(ring, n_snap).get_all()
+        snapshot_s = time.monotonic() - t1
+    finally:
+        del ring.tail
+    if len(gather) != 1:
+        fail(f"replay-io: replay_snapshot gathered {len(gather)} times, expected once")
+    gather_s = gather[0]
+    want_idx = np.arange(total - n_snap, total)
+    if not np.array_equal(snap["rewards"][:, 0].numpy(), want_idx.astype(np.float32)):
+        fail("replay-io: the snapshot's rewards are not the newest transitions' global indices in push order")
+    rows = torch.as_tensor(want_idx % REPLAY_IO_BLOCK)
+    packed = {}
+    with torch.no_grad():
+        for key in ("obs", "next_obs"):
+            obs = {k: torch.as_tensor(v).cuda() for k, v in block[key].items() if k != "pos_encoding"}
+            packed[key] = pack_device_features(obs, torch.bfloat16, synth_pos=(WALKER["frames"], WALKER["n_points"]))
+            if not same_bits(snap[key]["pcd"], packed[key]["pcd"].cpu()[rows]):
+                fail(f"replay-io: the snapshot's {key} differ from the packed pushes (bitwise)")
+    for key in ("actions", "dones", "episode_dones"):
+        if not same_bits(snap[key], torch.as_tensor(block[key])[rows]):
+            fail(f"replay-io: the snapshot's {key} differ from the pushes (bitwise)")
+    snap_gb = sum(x.nbytes for x in (snap["obs"]["pcd"], snap["next_obs"]["pcd"])) / 1e9
+    print(f"[replay-io] save_replay={n_snap} snapshot (train_rl's replay_snapshot): the newest {n_snap} in push "
+          f"order, bitwise (bf16 bits and reward indices {want_idx[0]}..{want_idx[-1]}); gather + D2H "
+          f"{1e3 * gather_s:.1f} ms ({snap_gb:.2f} GB of obs), replay_snapshot in all (with the host replay's copy) "
+          f"{1e3 * snapshot_s:.1f} ms "
+          f"on {card}", flush=True)
+    print("[replay-io] the HDF5 write and read of the snapshot are host code (h5py is not on this machine): "
+          "tests/test_torch_replay_io.py and tests/test_torch_offline.py hold that round trip on the CPU", flush=True)
+
+    # -- the restore: load_hdf5's chunk loop, from the host tree
+    fresh = build_replay(replay_cfg, dict(seed=REPLAY_IO_SEED + 1), device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    fresh.push_in_chunks(n_snap, lambda sl: tree_slice(snap, sl))  # CHUNK rows, as load_hdf5
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t1
+    chunks = -(-n_snap // CHUNK)
+    if len(fresh) != n_snap or fresh.position != n_snap:
+        fail(f"replay-io: the restored ring holds {len(fresh)} at position {fresh.position}, expected {n_snap}")
+    for key, leaf in (("obs", "pcd"), ("next_obs", "pcd"), ("actions", None), ("rewards", None), ("dones", None)):
+        got = fresh.storage[key][leaf] if leaf else fresh.storage[key]
+        want = snap[key][leaf] if leaf else snap[key]
+        for a in range(0, n_snap, CHUNK):
+            b = min(a + CHUNK, n_snap)
+            if not same_bits(got[a:b], want[a:b].cuda()):
+                fail(f"replay-io: the restored {key} differ from the snapshot at rows {a}.. (bitwise)")
+    print(f"[replay-io] restore through load_hdf5's chunk loop (push_in_chunks): {chunks} chunks of "
+          f"{CHUNK} rows in {1e3 * restore_s:.1f} ms ({1e3 * restore_s / chunks:.2f} ms per chunk); "
+          f"the ring equals the snapshot bitwise, obs stored packed as they came", flush=True)
+    del snap
+    # The rewards carried each transition's index (to ~1e5) for the order
+    # checks; train on a walker's own scale (DMC rewards lie in [0, 1]).
+    rewards = np.random.RandomState(REPLAY_IO_SEED).uniform(0, 1, (n_snap, 1)).astype(np.float32)
+    fresh.storage["rewards"][:n_snap].copy_(torch.as_tensor(rewards))
+
+    # -- offline updates from the restored ring: first one card vs CPU
+    agent_cpu, agent = twin_agents(dict(agent_cfg, env_params=info))
+    first = fresh.sample(agent.batch_size)
+    noisy = heads.tanh_normal_rsample_with_log_prob
+
+    def zero_noise(generator, mean, std, scale, bias, epsilon=1e-6):
+        return dist.tanh_transform(mean, scale, bias), dist.tanh_log_prob_with_logit(mean, mean, std, scale, epsilon)
+
+    heads.tanh_normal_rsample_with_log_prob = zero_noise  # the same draw (none) on both devices
+    try:
+        t1 = time.monotonic()
+        cpu_metrics = agent_cpu.update_parameters(_Batch(tree_map(lambda t: t.cpu(), first)), 0)
+        cpu_s = time.monotonic() - t1
+        ref = compare_agents("replay_io_first_update", agent_cpu, agent, cpu_metrics,
+                             agent.update_parameters(_Batch(first), 0), lr=1e-3, metric_rtol=ACTION_ATOL_BF16)
+    finally:
+        heads.tanh_normal_rsample_with_log_prob = noisy
+    print(f"[replay-io] first update from the restored ring, card (kernels, bf16) vs CPU (plain, bf16), the "
+          f"noise pinned to zero on both: {ref} (metrics to {ACTION_ATOL_BF16} relative; CPU {cpu_s:.1f} s)",
+          flush=True)
+    del agent_cpu
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_replay_io_", dir=osp.join(REPO, "build"))
+    log = _MetricLog()
+    try:
+        pf.reset_launch_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = train_rl(agent, None, None, fresh, work_dir=work, total_steps=REPLAY_IO_STEPS, warm_steps=0,
+                       n_steps=0, n_updates=n_updates, n_log=REPLAY_IO_STEPS // 4, n_eval=-1, n_checkpoint=-1,
+                       exp_logger=log)
+        end.record()
+        torch.cuda.synchronize()
+        launches = dict(pf.launch_counts)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ms = start.elapsed_time(end)
+    updates = out["grad_steps"]
+    for kname in TPU_KERNELS:
+        if launches[kname] <= 0:
+            fail(f"{kname} was never launched by the offline updates of the replay-io phase")
+    bad = [(i, k) for i, row in enumerate(log.rows) for k, v in row.items()
+           if isinstance(v, float) and not math.isfinite(v)]
+    if bad or updates != REPLAY_IO_STEPS * n_updates or not any("sac/critic_loss" in r for r in log.rows):
+        fail(f"replay-io: {updates} updates, non-finite or missing metrics {bad[:5]}")
+    rec = {
+        "name": "replay_io", "config": WALKER_CONFIG, "capacity": capacity, "filled": total,
+        "position": ring.position, "storage_gb": storage_gb, "fill_s": fill_s, "snapshot_rows": n_snap,
+        "snapshot_obs_gb": snap_gb, "gather_d2h_ms": 1e3 * gather_s, "snapshot_ms": 1e3 * snapshot_s,
+        "restore_chunks": chunks, "restore_ms": 1e3 * restore_s, "restore_ms_per_chunk": 1e3 * restore_s / chunks,
+        "first_update_vs_cpu": ref, "updates": updates, "launches": launches,
+        "offline_ms_per_update": ms / updates, "offline_updates_per_s": 1e3 * updates / ms,
+        "main_loop_ms_per_update": 1e3 * out["main_loop_s"] / updates,
+        "critic_loss_last": log.rows[-1].get("sac/critic_loss"), "phase_s": time.monotonic() - t0,
+    }
+    print(f"[replay-io] offline train_rl (rollout None, n_steps 0, warm_steps 0) from the restored ring: {updates} "
+          f"updates in {ms:.1f} ms (CUDA events around the call, its final checkpoint included): "
+          f"{rec['offline_ms_per_update']:.2f} ms per update, {rec['offline_updates_per_s']:.1f} updates/s; "
+          f"{rec['main_loop_ms_per_update']:.2f} ms per update over train_rl's main loop; kernel launches "
+          f"{launches}; metrics finite; phase {rec['phase_s']:.1f} s on {card}", flush=True)
+    return rec
+
+
 def main() -> int:
     if not osp.isdir(osp.join(REPO, "pointcloud_rl_torch")):
         fail(f"the port's package is not beside {__file__}; run from a checkout of the repo")
@@ -1945,7 +2191,7 @@ def main() -> int:
         dp_worker(argv[at + 1], argv[at + 2])
         return 0
     kernels_only = "--kernels-only" in argv
-    # --only PHASE[,PHASE]: runs, encoders, modules, dmc, dp (the kernel phase always runs)
+    # --only PHASE[,PHASE]: runs, encoders, modules, dmc, dp, replay-io (the kernel phase always runs)
     only = set(argv[argv.index("--only") + 1].split(",")) if "--only" in argv else None
 
     def wanted(phase: str) -> bool:
@@ -2019,6 +2265,11 @@ def main() -> int:
         by_run["dp"] = dp["launches"]
         print(json.dumps({"dp": dp}), flush=True)
         print(f"[time] through the dp phase: {time.monotonic() - t0:.1f} s", flush=True)
+    if wanted("replay-io"):
+        rio = phase_replay_io(pf, card)
+        by_run["replay_io"] = rio["launches"]
+        print(json.dumps({"replay_io": rio}), flush=True)
+        print(f"[time] through the replay-io phase: {time.monotonic() - t0:.1f} s", flush=True)
 
     launches = {k: (sum(run[k] for run in by_run.values()) if by_run else None) for k in TPU_KERNELS}
     kernels = []

@@ -23,7 +23,9 @@ their workers' raw renders on ``--device`` too.  The replay comes after the
 agent, since a ``DeviceReplayMemory`` keeps its storage on the agent's
 device.  Each run
 writes ``run_summary.json`` into the work dir: the device, step counts,
-throughput over the main loop, the replay (type, device, bytes of storage),
+throughput over the main loop, the replay (type, device, bytes of storage;
+``replay_restored``: the transitions a resume restored from the
+``train_cfg.save_replay`` snapshot ``models/replay_latest.h5``),
 the fused-PointNet kernel launches of the process, evaluation results, and
 the ``pointcloud_rl_tpu`` modules loaded in the process (none: the port
 stands alone).
@@ -49,7 +51,7 @@ from ..utils.seeding import add_env_vars, set_host_seed
 from .train_rl import train_rl
 
 _TRAIN_KEYS = ("total_steps", "warm_steps", "n_steps", "n_updates", "n_log", "n_eval",
-               "n_checkpoint", "on_policy", "ep_stats_cfg")
+               "n_checkpoint", "on_policy", "ep_stats_cfg", "save_replay")
 
 
 def parse_args(args=None):
@@ -116,7 +118,7 @@ def main(args=None) -> None:
     if max(int(os.environ.get(k, "1")) for k in ("WORLD_SIZE", "SLURM_NTASKS")) > 1:
         raise NotImplementedError("a world launched from outside (WORLD_SIZE or SLURM_NTASKS > 1, e.g. torchrun "
                                   "across hosts) is not ported: run_rl spawns its own ranks on one host with "
-                                  "--num-devices (ROADMAP.md queue A, item A10: multi-host, each host collecting)")
+                                  "--num-devices (ROADMAP.md queue A, A10: multi-host, each host collecting)")
     cfg = load_config(args.config, args.cfg_options)
     if num_devices > 1:
         check_world(cfg, args, num_devices)
@@ -238,6 +240,19 @@ def replay_summary(replay) -> Optional[dict]:
             "capacity": replay.capacity, "size": len(replay), "storage_bytes": nbytes}
 
 
+def restore_replay(replay, work_dir: str) -> int:
+    """Push ``<work_dir>/models/replay_latest.h5`` (``train_rl``'s
+    ``save_replay`` snapshot), when there is one, into ``replay``; return
+    the replay's length then.  In a data-parallel world every rank reads
+    the file into its own replica, so each equals the 1-rank restore."""
+    snap = osp.join(work_dir, "models", "replay_latest.h5")
+    if replay is None or not osp.exists(snap):
+        return 0
+    replay.load_hdf5(snap)
+    get_logger("pcrl").info(f"Restored replay snapshot: {len(replay)} transitions")
+    return len(replay)
+
+
 def run(cfg: Config, work_dir: str, seed: int, args, world: int = 1) -> dict:
     """Build the env side, the agent and the replay, then train (or
     evaluate).  In a data-parallel world of ``world`` ranks this runs on
@@ -253,12 +268,14 @@ def run(cfg: Config, work_dir: str, seed: int, args, world: int = 1) -> dict:
         init_distributed(device=args.device)  # from the environment rank_main set
     env_cfg = cfg["env_cfg"].to_dict() if hasattr(cfg["env_cfg"], "to_dict") else dict(cfg["env_cfg"])
     train_cfg = dict(cfg.get("train_cfg", {}))
-    for key in ("expert_replay_cfg", "recent_traj_replay_cfg"):
-        if cfg.get(key):
-            raise NotImplementedError(f"{key} is not ported to pointcloud_rl_torch yet (ROADMAP.md queue A, item A1)")
-    if train_cfg.get("save_replay"):
-        raise NotImplementedError("train_cfg.save_replay is not ported to pointcloud_rl_torch yet "
-                                  "(ROADMAP.md queue A, item A1)")
+    if rank == 0 and (train_cfg.get("save_replay") or 0) > 0:
+        try:  # fail now, not at the first checkpoint
+            import h5py  # noqa: F401
+        except ImportError as e:
+            raise ImportError(f"train_cfg.save_replay={train_cfg['save_replay']} writes HDF5 snapshots and needs "
+                              "h5py (or set train_cfg.save_replay=0)") from e
+    if cfg.get("expert_replay_cfg") and not dict(cfg["expert_replay_cfg"]).get("buffer_filenames"):
+        raise ValueError("expert_replay_cfg needs buffer_filenames")
 
     env_info = get_env_info(env_cfg)
     logger.info(f"Env info: obs={env_info['obs_shape']}, action={env_info['action_shape']}, "
@@ -284,7 +301,7 @@ def run(cfg: Config, work_dir: str, seed: int, args, world: int = 1) -> dict:
         eval_num = eval_cfg.get("num", 1)
         evaluator = build_evaluation(eval_cfg)
 
-    exp_logger = None
+    exp_logger = replay = expert_replay = None
     try:
         import torch
 
@@ -303,6 +320,11 @@ def run(cfg: Config, work_dir: str, seed: int, args, world: int = 1) -> dict:
         agent = build_agent(agent_cfg)
         logger.info(f"Agent: {agent_cfg['type']}, params: {agent.num_params:,}, device: {device} ({device_name})")
         replay = build_replay(cfg.get("replay_cfg"), dict(seed=seed), device=device)
+        # a demo/expert dataset (HDF5, streamed when larger than its
+        # capacity) and a buffer of the recent collections, for agents whose
+        # objectives read them
+        expert_replay = build_replay(cfg.get("expert_replay_cfg") or None, dict(seed=seed), device=device)
+        recent_traj_replay = build_replay(cfg.get("recent_traj_replay_cfg") or None, dict(seed=seed), device=device)
         if world > 1:
             from ..parallel import replicate_rollout, setup_data_parallel
 
@@ -318,6 +340,7 @@ def run(cfg: Config, work_dir: str, seed: int, args, world: int = 1) -> dict:
             logger.info(f"Resuming from {resume_path} (step {resume_steps})")
             agent.load_state_dict(load_checkpoint(resume_path, device, keys_map=args.resume_keys_map))
             resume_steps = int(train_cfg.get("resume_steps", resume_steps))
+        restored = restore_replay(replay, work_dir) if resume_path else 0
 
         exp_logger_cfg = train_cfg.pop("exp_logger_cfg", dict(type="tensorboard"))
         if isinstance(exp_logger_cfg, dict):
@@ -327,7 +350,7 @@ def run(cfg: Config, work_dir: str, seed: int, args, world: int = 1) -> dict:
             exp_logger = build_exp_logger(exp_logger_cfg)
 
         summary = {"device": str(device), "device_name": device_name, "resume_steps": resume_steps,
-                   "world_size": world}
+                   "world_size": world, "replay_restored": restored}
         pointnet_fused.reset_launch_counts()
         if args.evaluation:
             assert evaluator is not None, "--evaluation requires eval_cfg"
@@ -338,7 +361,8 @@ def run(cfg: Config, work_dir: str, seed: int, args, world: int = 1) -> dict:
         else:
             out = train_rl(agent=agent, rollout=rollout, evaluator=evaluator, replay=replay,
                            work_dir=work_dir, exp_logger=exp_logger, resume_steps=resume_steps,
-                           eval_num=eval_num, profile_steps=args.profile,
+                           eval_num=eval_num, profile_steps=args.profile, expert_replay=expert_replay,
+                           recent_traj_replay=recent_traj_replay,
                            **{k: v for k, v in train_cfg.items() if k in _TRAIN_KEYS})
             secs = max(out["main_loop_s"], 1e-9)
             summary.update(out, env_steps_per_s=out["main_loop_env_steps"] / secs,
@@ -361,6 +385,9 @@ def run(cfg: Config, work_dir: str, seed: int, args, world: int = 1) -> dict:
             evaluator.close()
         if exp_logger is not None:
             exp_logger.close()
+        for buf in (replay, expert_replay):  # stops a dataset's prefetch thread
+            if hasattr(buf, "close"):
+                buf.close()
         if world > 1:
             import torch.distributed as dist
 

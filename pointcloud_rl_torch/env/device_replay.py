@@ -12,6 +12,10 @@ each observation as the model-input tensor (``pack_device_features``:
 one, is stripped before upload and re-synthesized on the device.  At 1200
 points x 8 channels in bf16 that is 19.2 KB per observation.
 
+``tail`` (the snapshot ``train_rl``'s ``save_replay`` writes), ``get_all``
+and ``to_hdf5`` gather to the host in chunks of rows; ``load_hdf5`` pushes
+a snapshot back in chunks as it reads them (``push_in_chunks``).
+
 This module imports torch; the rest of ``pointcloud_rl_torch.env`` does
 not, and ``build_replay`` imports it only for a ``DeviceReplayMemory``.
 """
@@ -28,6 +32,10 @@ from .builder import REPLAYS
 from .replay import ReplayMemory, apply_transfer
 
 _SKIP_KEYS = ("infos",)
+# Rows per gather of ``tail`` / ``get_all`` and per push of a restore: the
+# device holds one chunk's copy at most (50000 rows of the walker's packed
+# storage are 2.8 GB).  ``load_hdf5``'s default, as in the JAX package.
+CHUNK = 4096
 
 
 def _storage_dtype(spec) -> torch.dtype:
@@ -85,7 +93,8 @@ class DeviceReplayMemory:
         return tree_map(_one, tree)
 
     def _pack(self, items: Dict[str, Any]) -> Dict[str, Any]:
-        """Strip pos_encoding on the host, upload, pack on the device."""
+        """Strip pos_encoding on the host, upload, pack on the device.  Obs
+        that are packed already (a snapshot's) pass through."""
         from ..algorithms.obs_transfer import pack_device_features
 
         if self.storage is None:  # the first push fixes the block's shape
@@ -151,19 +160,64 @@ class DeviceReplayMemory:
             raise ValueError("Cannot sample from an empty buffer")
         return self.gather(self._draw_indices(batch_size))
 
+    def _rows_to_host(self, idx: torch.Tensor) -> Dict[str, Any]:
+        """The rows ``idx`` of every leaf as CPU tensors, gathered ``CHUNK``
+        rows at a time."""
+        n = len(idx)
+        out = tree_map(lambda s: torch.empty((n,) + tuple(s.shape[1:]), dtype=s.dtype), self.storage)
+        for start in range(0, n, CHUNK):
+            part = self.gather(idx[start:start + CHUNK])
+            tree_map(lambda dst, src: dst[start:start + len(src)].copy_(src), out, part)
+        return out
+
     def tail(self, num: int) -> Dict[str, Any]:
         """The most recent ``num`` transitions in push order, as CPU tensors."""
         num = min(num, len(self))
         idx = torch.as_tensor(np.arange(self.position - num, self.position) % self.capacity, device=self.device)
-        return tree_map(lambda t: t.cpu(), self.gather(idx))
+        return self._rows_to_host(idx)
+
+    def get_all(self) -> Dict[str, Any]:
+        """Every stored transition in storage order (not push order, once
+        the ring has wrapped), as CPU tensors."""
+        return self._rows_to_host(torch.arange(len(self), device=self.device))
 
     def to_hdf5(self, filename: str) -> None:
-        raise NotImplementedError("DeviceReplayMemory.to_hdf5 is not ported to pointcloud_rl_torch yet "
-                                  "(ROADMAP.md queue A, item A1: the h5py replay extras)")
+        """``get_all()`` written by a host ``ReplayMemory`` (bfloat16 leaves
+        as tagged uint16 bits, ``replay.h5_storable``)."""
+        host = ReplayMemory(len(self))
+        host.push_batch(self.get_all())
+        host.to_hdf5(filename)
 
-    def load_hdf5(self, filename: str, chunk: int = 4096) -> None:
-        raise NotImplementedError("DeviceReplayMemory.load_hdf5 is not ported to pointcloud_rl_torch yet "
-                                  "(ROADMAP.md queue A, item A1: the h5py replay extras)")
+    def push_in_chunks(self, n: int, rows, chunk: int = CHUNK) -> None:
+        """Push ``n`` transitions in order, ``chunk`` rows at a time;
+        ``rows(sl)`` gives those of the slice ``sl`` (of a file being read,
+        or of a host tree).  Fixed-size chunks bound the host and device
+        temporaries of a large restore.  A packed snapshot's obs
+        (``{"pcd", "state"}``) are stored as they are: ``_pack`` packs only
+        an obs dict with ``xyz``."""
+        for start in range(0, n, chunk):
+            self.push_batch(rows(slice(start, min(start + chunk, n))))
+
+    def load_hdf5(self, filename: str, chunk: int = CHUNK) -> None:
+        """Push a snapshot (``to_hdf5``, or a host replay's) in ``chunk``-row
+        pieces as they are read."""
+        import h5py
+
+        from .replay import h5_read
+
+        def _load(group, sl):
+            return {k: (_load(v, sl) if hasattr(v, "items") else h5_read(v, sl)) for k, v in group.items()}
+
+        def _first_ds(group):
+            for v in group.values():
+                found = _first_ds(v) if hasattr(v, "items") else v
+                if found is not None:
+                    return found
+            return None
+
+        with h5py.File(filename, "r") as f:
+            ds = _first_ds(f)
+            self.push_in_chunks(0 if ds is None else len(ds), lambda sl: _load(f, sl), chunk)
 
     def place_on(self, device) -> None:
         """Keep this replica on ``device``, a data-parallel rank's own

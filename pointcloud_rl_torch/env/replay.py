@@ -7,8 +7,10 @@ caching for full-episode pushes, uniform sampling through a strategy object,
 HDF5 import/export, and ``tail``/``get_all`` views.
 
 Design note: the buffer lives in host RAM as numpy (env workers write it);
-the jitted update consumes sampled batches via device_put.  An HBM-resident
-variant for on-device sampling lives in parallel/device_replay.py.
+the update uploads sampled batches to its device.  A leaf may instead be a
+torch CPU tensor where numpy has no dtype for it: bfloat16, as in a
+snapshot of a packed ``DeviceReplayMemory`` (env/device_replay.py, the
+variant that samples on the device).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 
 from ..utils.tree_ops import (
     first_leaf,
+    is_tensor,
     tree_assign,
     tree_concat,
     tree_empty_like_with_capacity,
@@ -34,30 +37,34 @@ _SKIP_KEYS = ("infos",)
 def h5_storable(v):
     """h5py has no bfloat16: store the bit pattern as uint16 plus a
     ``pcrl_dtype`` attr (older h5py silently wrote an opaque ``|V2`` void
-    dataset instead, which numpy/jax cannot consume on restore)."""
+    dataset instead, which numpy/jax cannot consume on restore).  A torch
+    tensor is stored as its numpy view; a bfloat16 one (numpy has no such
+    dtype) as its bits, like a numpy array of an extension bfloat16 dtype
+    (kind ``V``)."""
+    if is_tensor(v):
+        import torch
+
+        v = v.detach().cpu()
+        if v.dtype == torch.bfloat16:
+            return v.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        return v.numpy(), None
     arr = np.asarray(v)
     if arr.dtype.itemsize == 2 and arr.dtype.kind not in "fuib":
         return arr.view(np.uint16), "bfloat16"
-    try:
-        import ml_dtypes
-
-        if arr.dtype == ml_dtypes.bfloat16:
-            return arr.view(np.uint16), "bfloat16"
-    except ImportError:  # pragma: no cover - ml_dtypes ships with jax
-        pass
     return arr, None
 
 
 def h5_read(ds, sl=None):
     """Read an HDF5 dataset (optionally a row slice), undoing ``h5_storable``:
     ``pcrl_dtype='bfloat16'`` uint16 bit patterns — and legacy opaque 2-byte
-    void datasets written before the tag existed — view back as bfloat16."""
+    void datasets written before the tag existed — read back as a
+    ``torch.bfloat16`` CPU tensor with the same bits."""
     a = np.asarray(ds if sl is None else ds[sl])
     tag = ds.attrs.get("pcrl_dtype") if hasattr(ds, "attrs") else None
     if tag == "bfloat16" or (a.dtype.kind == "V" and a.dtype.itemsize == 2):
-        import ml_dtypes
+        import torch
 
-        a = a.view(ml_dtypes.bfloat16)
+        a = torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
     return a
 
 
@@ -112,12 +119,19 @@ class ReplayMemory:
         # valid while none of it has been overwritten by the ring.
         self._episode_spans: List[tuple] = []  # (global_start, length)
         self._open_episodes: Dict[int, tuple] = {}  # worker -> (global_start, length)
+        self.data_coder = None
         if data_coder_cfg is not None:
-            raise NotImplementedError("replay data_coder_cfg (utils.io.DataCoder) is not ported to "
-                                      "pointcloud_rl_torch yet (ROADMAP A1)")
-        # HDF5-dataset backing (reference replay_buffer.py:100-172): a
-        # dataset that fits in capacity full-loads once; streaming a larger
-        # one in chunks (dynamic loading) is not ported.
+            from ..utils.io import DataCoder
+
+            self.data_coder = DataCoder(**data_coder_cfg)
+        # HDF5-dataset backing (reference replay_buffer.py:100-172): when the
+        # dataset exceeds capacity, chunks stream in via a background
+        # prefetcher and sample() swaps to the next chunk after one pass
+        # over the current one (dynamic loading); otherwise everything
+        # full-loads once.
+        self.dynamic_loading = False
+        self._chunk_loader = None
+        self._chunk_sampled = 0
         if buffer_filenames:
             self._init_file_backing(list(buffer_filenames), dynamic_loading,
                                     cache_files_ahead, num_samples)
@@ -312,20 +326,39 @@ class ReplayMemory:
                             for k, v in g.items()}
 
                 parts.append(_load(grp))
-        return tree_concat(parts, 0) if len(parts) > 1 else parts[0]
+        data = tree_concat(parts, 0) if len(parts) > 1 else parts[0]
+        if self.data_coder is not None:
+            data = self.data_coder.decode(data)
+        return data
 
     def _init_file_backing(self, filenames, dynamic_loading, ahead, num_samples):
         units, total = self._hdf5_units(filenames, self.capacity, num_samples)
         if dynamic_loading is None:
             dynamic_loading = total > self.capacity
-        if dynamic_loading:
-            raise NotImplementedError("dynamic loading of an HDF5 replay dataset (utils.io.FileCache) "
-                                      "is not ported to pointcloud_rl_torch yet (ROADMAP A1)")
-        for unit in units:
-            self.push_batch(self._load_unit(unit))
+        self.dynamic_loading = bool(dynamic_loading)
+        if not self.dynamic_loading:
+            for unit in units:
+                self.push_batch(self._load_unit(unit))
+            return
+        # chunks stream through a background prefetcher; one pass over each
+        # chunk, then swap (reference replay_buffer.py:134-138, 297-314)
+        from ..utils.io import FileCache
+
+        self._chunk_loader = FileCache(units, loader=self._load_unit, ahead=ahead, loop=True)
+        self._swap_chunk()
+
+    def _swap_chunk(self) -> None:
+        _, data = self._chunk_loader.get()
+        assert data is not None, "dataset prefetcher closed unexpectedly"
+        self.reset()
+        self.push_batch(data)
+        self._chunk_sampled = 0
 
     # --------------------------------------------------------------- sample
     def sample(self, batch_size: int) -> Dict[str, Any]:
+        if self.dynamic_loading and self._chunk_sampled + batch_size > len(self):
+            self._swap_chunk()
+        self._chunk_sampled += batch_size
         idx = self.sampling.sample(batch_size, len(self), self.capacity)
         return tree_take(self.memory, idx)
 
@@ -385,3 +418,8 @@ class ReplayMemory:
 
             data = _load(f)
         self.push_batch(data)
+
+    def close(self) -> None:
+        if self._chunk_loader is not None:
+            self._chunk_loader.close()
+            self._chunk_loader = None

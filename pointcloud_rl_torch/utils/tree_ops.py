@@ -14,6 +14,7 @@ leaf, and are non-mutating unless explicitly named ``assign``.
 
 from __future__ import annotations
 
+import sys
 from typing import Any, Callable, Dict, List, Sequence, Tuple, Union
 
 import numpy as np
@@ -83,8 +84,23 @@ def tree_slice(tree: Tree, index) -> Tree:
     return tree_map(lambda x: x[index], tree)
 
 
+def is_tensor(x) -> bool:
+    """Whether ``x`` is a torch tensor, without importing torch: a process
+    that never imported it holds none.  A host tree may hold CPU tensors
+    where numpy has no dtype for the data (bfloat16)."""
+    torch = sys.modules.get("torch")
+    return torch is not None and isinstance(x, torch.Tensor)
+
+
 def tree_take(tree: Tree, indices: np.ndarray, axis: int = 0) -> Tree:
-    return tree_map(lambda x: np.take(x, indices, axis=axis), tree)
+    def _take(x):
+        if is_tensor(x):
+            import torch
+
+            return x.index_select(axis, torch.as_tensor(np.asarray(indices, np.int64)))
+        return np.take(x, indices, axis=axis)
+
+    return tree_map(_take, tree)
 
 
 def tree_concat(trees: Sequence[Tree], axis: int = 0) -> Tree:
@@ -112,9 +128,10 @@ def tree_empty_like_with_capacity(tree: Tree, capacity: int, batched: bool = Tru
     """Preallocate ``[capacity, *leaf.shape[batched:]]`` arrays matching dtypes."""
 
     def _alloc(x):
-        x = np.asarray(x)
-        inner = x.shape[1:] if batched else x.shape
-        return np.empty((capacity,) + inner, dtype=x.dtype)
+        inner = tuple(np.shape(x)[1:] if batched else np.shape(x))
+        if is_tensor(x):
+            return x.new_empty((capacity,) + inner)
+        return np.empty((capacity,) + inner, dtype=np.asarray(x).dtype)
 
     return tree_map(_alloc, tree)
 

@@ -162,7 +162,7 @@ def test_pack_device_features_is_bitwise_the_jax_one():
     np.testing.assert_array_equal(synth_pos_encoding(3, 4).numpy(), np.asarray(j_obs_transfer.synth_pos_encoding(3, 4)))
 
 
-def test_port_draws_and_interface():
+def test_port_draws_and_interface(tmp_path):
     mem = build_replay(dict(type="DeviceReplayMemory", capacity=CAPACITY, transfer_cfg=dict(pack_features=True)),
                        dict(seed=0, device="cpu"))
     assert isinstance(mem, DeviceReplayMemory) and mem.storage is None
@@ -185,8 +185,12 @@ def test_port_draws_and_interface():
     assert torch.equal(draws[0], draws[1]) and not torch.equal(draws[0], draws[2])
     batch = mem.sample(5)
     assert batch["obs"]["pcd"].shape == (5, N_POINTS, 8) and batch["dones"].dtype == torch.bool
-    with pytest.raises(NotImplementedError, match="A1"):
-        mem.to_hdf5("x.h5")
+    # the snapshot file: storage order, read back into a fresh ring bitwise
+    mem.to_hdf5(str(tmp_path / "x.h5"))
+    back = DeviceReplayMemory(CAPACITY, transfer_cfg=dict(pack_features=True), device="cpu")
+    back.load_hdf5(str(tmp_path / "x.h5"), chunk=2)
+    assert len(back) == len(mem) == 3
+    assert torch.equal(back.storage["obs"]["pcd"][:3].view(torch.int16), mem.storage["obs"]["pcd"][:3].view(torch.int16))
     # a data-parallel rank's replica stays on the rank's device: here the CPU, where it is
     mem.place_on(torch.device("cpu"))
     assert mem.device.type == "cpu" and mem.storage["obs"]["pcd"].device.type == "cpu"

@@ -1,8 +1,8 @@
 """The port runs where JAX is not installed.
 
 The card's machine has PyTorch but no jax, flax, optax, orbax, h5py,
-tensorboardX, dm_control or MuJoCo, and the port imports nothing of the
-JAX package either.  A ``sitecustomize`` on the subprocesses' path makes
+ml_dtypes, cv2, tensorboardX, dm_control or MuJoCo, and the port imports
+nothing of the JAX package either.  A ``sitecustomize`` on the subprocesses' path makes
 every one of those imports (``pointcloud_rl_tpu`` included) fail, in the process
 and in every process it starts (the env workers included); then every
 ``pointcloud_rl_torch`` module is imported and the slices' CLI takes a few
@@ -11,7 +11,10 @@ a ``DeviceReplayMemory`` with packed bf16 storage and the bf16 agent flag,
 and DrQ with the voxel encoder, and SAC on two data-parallel gloo ranks;
 and the DMC path below the simulator (the
 device fusion of raw renders, the walker recipe's agent with its obs
-transfer, a packed device replay, an update) runs with dm_control blocked.
+transfer, a packed device replay, an update) runs with dm_control blocked;
+and a packed bf16 ring's snapshot (``train_rl``'s ``replay_snapshot``) is
+restored in memory into a fresh ring through its chunk loop, bitwise,
+without h5py.
 """
 
 import json
@@ -34,7 +37,7 @@ torch.set_num_threads(1)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "h5py", "tensorboardX", "dm_control", "mujoco",
-           "pointcloud_rl_tpu")
+           "ml_dtypes", "cv2", "pointcloud_rl_tpu")
 
 _BLOCKER = textwrap.dedent(f"""
     import importlib.abc
@@ -73,10 +76,10 @@ def test_every_module_imports_without_jax(tmp_path):
     out = subprocess.run([sys.executable, "-c", script], env=_env(tmp_path), cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    # every module of the package was imported (73 with the DMC env, the
-    # server env, the fusion, camera and sampling ops, parallel/ and
-    # utils/draws.py)
-    assert int(out.stdout.split()[-1]) >= 73
+    # every module of the package was imported (75 with the DMC env, the
+    # server env, the fusion, camera and sampling ops, parallel/,
+    # utils/draws.py, utils/io.py and utils/file_client.py)
+    assert int(out.stdout.split()[-1]) >= 75
 
 
 _FUSED = "agent_cfg.actor_cfg.nn_cfg.visual_nn_cfg.fused=True"
@@ -160,3 +163,40 @@ def test_dmc_path_runs_without_jax_and_dm_control(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "dmc path ok ['pcd']" in out.stdout
+
+
+_SNAPSHOT = textwrap.dedent("""
+    import numpy as np
+    import torch
+    from pointcloud_rl_torch.apis.train_rl import replay_snapshot
+    from pointcloud_rl_torch.env.device_replay import DeviceReplayMemory
+    from pointcloud_rl_torch.utils import file_client, io  # noqa: F401  (import without h5py, cv2, yaml in use)
+    from pointcloud_rl_torch.utils.tree_ops import tree_slice
+
+    def raw(n, start):
+        rs = np.random.RandomState(start)
+        obs = lambda: {"xyz": rs.randn(n, 3, 24).astype(np.float32),
+                       "rgb": rs.randint(0, 256, (n, 3, 24)).astype(np.uint8)}
+        return {"obs": obs(), "next_obs": obs(), "actions": rs.randn(n, 2).astype(np.float32),
+                "rewards": (start + np.arange(n, dtype=np.float32))[:, None], "dones": np.zeros((n, 1), bool)}
+
+    ring = DeviceReplayMemory(32, seed=0, transfer_cfg=dict(pack_features=True), device="cpu")
+    for start in range(0, 50, 10):
+        ring.push_batch(raw(10, start))
+    snap = replay_snapshot(ring, 20).get_all()
+    assert snap["obs"]["pcd"].dtype == torch.bfloat16
+    assert snap["rewards"][:, 0].tolist() == list(range(30, 50))
+    fresh = DeviceReplayMemory(32, seed=1, transfer_cfg=dict(pack_features=True), device="cpu")
+    fresh.push_in_chunks(20, lambda sl: tree_slice(snap, sl), chunk=6)
+    for key in ("obs", "next_obs"):
+        assert torch.equal(fresh.storage[key]["pcd"][:20].view(torch.int16), snap[key]["pcd"].view(torch.int16))
+    assert len(fresh) == 20 and torch.equal(fresh.storage["rewards"][:20], snap["rewards"])
+    print("snapshot ok")
+""")
+
+
+def test_snapshot_and_restore_run_without_h5py(tmp_path):
+    out = subprocess.run([sys.executable, "-c", _SNAPSHOT], env=_env(tmp_path), cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "snapshot ok" in out.stdout

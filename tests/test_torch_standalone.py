@@ -35,7 +35,8 @@ DMC_CONFIG = osp.join(REPO, "configs/mfrl/sac/dm_control/pn.py")
 WALKER_CONFIG = osp.join(REPO, "configs/mfrl/sac/dm_control/pn_walker_tpu.py")
 PORT_SOURCES = sorted(glob.glob(osp.join(REPO, "pointcloud_rl_torch", "**", "*.py"), recursive=True)
                       + [osp.join(REPO, "chip_smoke.py"), osp.join(REPO, "tools", "profile_torch_slice.py"),
-                   osp.join(REPO, "tools", "vn_f32_gap.py"), osp.join(REPO, "tests", "_torch_dp_worker.py")])
+                   osp.join(REPO, "tools", "vn_f32_gap.py"), osp.join(REPO, "tools", "replay_snapshot_cost.py"),
+                   osp.join(REPO, "tests", "_torch_dp_worker.py")])
 
 
 def _imported_modules(path):
@@ -292,3 +293,40 @@ def test_running_mean_std_is_the_original():
     x = rs.randn(5, 3) * 6
     np.testing.assert_array_equal(t.normalize(x), j.normalize(x))
     np.testing.assert_array_equal(t.std, j.std)
+
+
+def test_io_and_file_client_are_the_originals(tmp_path):
+    """``utils/io.py`` and ``utils/file_client.py`` are copies: the same
+    public names with the same signatures, and the same reads.  The codecs,
+    ``load`` / ``dump``, ``FileCache`` and the replays' files are held to the
+    originals in ``tests/test_torch_replay_io.py``."""
+    import inspect
+
+    from pointcloud_rl_torch.utils import file_client as t_fc
+    from pointcloud_rl_torch.utils import io as t_io
+    from pointcloud_rl_tpu.utils import file_client as j_fc
+    from pointcloud_rl_tpu.utils import io as j_io
+
+    def params(fn):
+        return [(p.name, p.kind) for p in inspect.signature(fn).parameters.values()]
+
+    for ours, theirs in ((t_io, j_io), (t_fc, j_fc)):
+        names = {n for n, v in vars(theirs).items() if not n.startswith("_") and getattr(v, "__module__", None)
+                 == theirs.__name__}
+        assert names and names <= set(vars(ours)), names - set(vars(ours))
+        for name in names:
+            a, b = getattr(ours, name), getattr(theirs, name)
+            members = [(n, m) for n, m in vars(b).items() if callable(m)] if inspect.isclass(b) else [("", b)]
+            for member, fn in members:
+                assert params(getattr(a, member) if member else a) == params(fn), (name, member)
+    (tmp_path / "blob.bin").write_bytes(b"\x00\x01payload")
+    (tmp_path / "t.txt").write_text("hello")
+    for fc in (t_fc, j_fc):
+        client = fc.FileClient("disk")
+        assert client.get(tmp_path / "blob.bin") == b"\x00\x01payload"
+        assert client.get_text(tmp_path / "t.txt") == "hello"
+        with pytest.raises(ValueError, match="not supported"):
+            fc.FileClient("nope")
+        with pytest.raises(TypeError):
+            fc.FileClient.register_backend("bad", dict)
+    assert set(t_fc.FileClient._backends) >= {"disk", "http", "lmdb", "memcached", "ceph"}
