@@ -4,8 +4,9 @@
     python3 chip_smoke.py               # all phases, one card
     python3 chip_smoke.py --kernels-only
     python3 chip_smoke.py --only dmc    # the kernel phase, then only the named phases
-                                        # (runs, encoders, modules, dmc, dp, replay-io); no result line
-    python3 chip_smoke.py --only dp --dp-nccl-ranks 4   # on a host of 4 cards
+                                        # (runs, encoders, modules, dmc, dp, hosts, hosts-nccl, replay-io);
+                                        # no result line
+    python3 chip_smoke.py --only dp,hosts-nccl --dp-nccl-ranks 4   # on a host of 4 cards
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -68,7 +69,8 @@ Phases (any failure exits non-zero and prints no result):
    every parameter's gradient on those rows must agree (``ENC_TOL``; VN
    ``VN_TOL``); ms per forward and
    per forward + backward (CUDA events) beside the FLOP count
-   (``torch.utils.flop_counter``: the products, matmuls and convolutions)
+   (``pointcloud_rl_torch/utils/flops.py`` on ``torch.utils.flop_counter``:
+   the products, matmuls and convolutions)
    and the least time the card could take in f32 and in TF32.
 7. The modules of the recurrent and DDPG slices, each built once, the same
    state dict on the card and on the CPU: the GRU's forward and backward at
@@ -123,7 +125,28 @@ Phases (any failure exits non-zero and prints no result):
    transition broadcast per cycle.
    (c) ``run_rl --profile 5`` on the SAC slice: its ``torch.profiler``
    trace must name both body kernels.
-11. Replay persistence (``replay-io``), in this process, at the walker
+11. A world across hosts (``hosts``), each host a fresh process
+   (``--hosts-worker``) with torchrun's variables (``GROUP_RANK`` h,
+   ``LOCAL_RANK`` 0, ``LOCAL_WORLD_SIZE`` 1) that joins a gloo world on
+   cuda:0 itself (NCCL refuses two ranks on one GPU) and calls the port's
+   ``run_rl.main``, as a rank started by torchrun would: (a) two hosts
+   train the SAC slice at full width (fused, global batch 256 = 128 rows
+   per rank, f32, 4 env workers per host, 512 warm-up + 128 env steps),
+   each collecting with the same seeds: both replays must be bitwise equal,
+   the parameters bitwise equal, each of ``HOSTS_UPDATES`` updates from the
+   trained state within ``DP_TOL`` of the 1-rank update (as in ``dp``),
+   both kernels launched on each rank, ``run_summary.json`` written by rank
+   0 alone (2 hosts; host 1's work dir stays empty); updates/s per host
+   and ms per update in lockstep (gloo stages each all-reduce through the
+   host).  (b) full-episode collection with host 1 slowed in this script
+   (its env steps followed by a sleep): the straggler vote must cut host 1
+   with its partial episodes flushed, every collection must push between
+   0.8 x and 1 x its quota, and both hosts must leave the loop at one step.
+   (c) ``hosts-nccl``, only with ``--dp-nccl-ranks N`` >= 2: two
+   ``torch.distributed.run`` agents on localhost (``--nnodes 2``, static
+   rendezvous), ``run_rl --device cuda --gpu-ids h`` over NCCL, checked
+   from the run's files.
+12. Replay persistence (``replay-io``), in this process, at the walker
    recipe's full width: a ``DeviceReplayMemory`` of the config's 100000
    packed bf16 transitions filled past one wrap by pushes of one seeded
    host block of 4096 raw transitions whose rewards carry their global
@@ -140,9 +163,9 @@ Phases (any failure exits non-zero and prints no result):
    kernels launched, every logged metric finite.  The HDF5 file between
    snapshot and restore is host code that needs h5py, which the card's
    machine lacks: ``tests/test_torch_replay_io.py`` holds it on the CPU.
-12. One JSON line describing the encoders, one describing the modules, one
-   each for the DMC modules, the DMC run, the dp phase and the replay-io
-   phase, one describing the kernels, the card's name and power limit, then
+13. One JSON line describing the encoders, one describing the modules, one
+   each for the DMC modules, the DMC run, the dp, hosts and replay-io
+   phases, one describing the kernels, the card's name and power limit, then
    the result line ``{"ok": true, "device": {...}}``.
 
 Every time printed here was measured in this run, on the card named in
@@ -782,9 +805,9 @@ def phase_encoders(card: str) -> list:
     import copy
 
     import torch
-    from torch.utils.flop_counter import FlopCounterMode
 
     from pointcloud_rl_torch.models import build_all
+    from pointcloud_rl_torch.utils.flops import estimate_flops
 
     results = []
     for name, path, overrides, kind, B, (atol, rtol, grad_rtol) in ENCODERS:
@@ -820,12 +843,9 @@ def phase_encoders(card: str) -> list:
         with torch.no_grad():
             fwd_ms = time_ms(lambda: net(obs), iters=10)
         step_ms = time_ms(fwd_bwd, iters=10)
-        with torch.no_grad(), FlopCounterMode(display=False) as fc:
-            net(obs)
-        fwd_flop = fc.get_total_flops()
-        with FlopCounterMode(display=False) as fc:
-            fwd_bwd()
-        step_flop = fc.get_total_flops()
+        with torch.no_grad():
+            fwd_flop = estimate_flops(net, obs)
+        step_flop = estimate_flops(fwd_bwd)
         in_bytes = sum(v.numel() * v.element_size() for v in obs.values())
         p_bytes = sum(p.numel() * 4 for p in net.parameters())
         out_bytes = B * out_dim * 4
@@ -1606,6 +1626,33 @@ def metric_gap(got: dict, want: dict) -> float:
     return max(abs(x - want[k]) / (1 + abs(want[k])) for k, x in got.items())
 
 
+def index_state(replay):
+    """The state of the replay's index draws: a ``DeviceReplayMemory``'s
+    generator, a host replay's sampler."""
+    return replay.generator.get_state() if hasattr(replay, "generator") else replay.sampling.rng.get_state()
+
+
+def set_index_state(replay, state) -> None:
+    if hasattr(replay, "generator"):
+        replay.generator.set_state(state)
+    else:
+        replay.sampling.rng.set_state(state)
+
+
+def stepwise_gaps(agent, replay, w_steps: list, w_metrics: list) -> list:
+    """Each of a world's updates against one update of this 1-rank agent
+    from the world's state before it, on the same global batch."""
+    out = []
+    for u in range(len(w_metrics)):
+        state, index_gen = w_steps[u]
+        agent.load_state_dict(state)
+        set_index_state(replay, index_gen)
+        metrics = agent.update_parameters(replay, u + 1)
+        out.append((u + 1, *param_gap(train_state_on_host(agent), w_steps[u + 1][0]),
+                    metric_gap(w_metrics[u], metrics)))
+    return out
+
+
 def check_worlds(agent, replay, steps: list, worlds: dict) -> dict:
     """In the 1-rank process: each world's updates against one update of this
     agent from the world's state before it, and the free runs compared."""
@@ -1615,30 +1662,22 @@ def check_worlds(agent, replay, steps: list, worlds: dict) -> dict:
     for label, path in worlds.items():
         world = torch.load(path, weights_only=False)
         w_steps = torch.load(path + ".steps", weights_only=False)
-        stepwise = []
-        for u in range(DP_UPDATES):
-            state, index_gen = w_steps[u]
-            agent.load_state_dict(state)
-            replay.generator.set_state(index_gen)
-            metrics = agent.update_parameters(replay, u + 1)
-            stepwise.append((u + 1, *param_gap(train_state_on_host(agent), w_steps[u + 1][0]),
-                             metric_gap(world["metrics"][u], metrics)))
         free = [(n, *param_gap(w_steps[n][0], steps[n][0])) for n in DP_FREE_RUN]
-        out[label] = {"stepwise": stepwise, "free": free}
+        out[label] = {"stepwise": stepwise_gaps(agent, replay, w_steps, world["metrics"]), "free": free}
     return out
 
 
-def take_updates(agent, replay, rank: int) -> tuple:
-    """(metrics, states): ``DP_UPDATES`` updates with the noise on; rank 0
-    keeps the train state and the replay's index generator before each
-    update and after the last."""
+def take_updates(agent, replay, rank: int, n: int = DP_UPDATES) -> tuple:
+    """(metrics, states): ``n`` updates with the noise on; rank 0 keeps the
+    train state and the replay's index draws before each update and after
+    the last."""
     metrics, steps = [], []
-    for u in range(DP_UPDATES):
+    for u in range(n):
         if rank == 0:
-            steps.append((train_state_on_host(agent), replay.generator.get_state()))
+            steps.append((train_state_on_host(agent), index_state(replay)))
         metrics.append(agent.update_parameters(replay, u + 1))
     if rank == 0:
-        steps.append((train_state_on_host(agent), replay.generator.get_state()))
+        steps.append((train_state_on_host(agent), index_state(replay)))
     return metrics, steps
 
 
@@ -1688,7 +1727,7 @@ def dp_worker(mode: str, out_path: str) -> None:
     rollout, reduce_s = stub, []
     if mode != "single":
         dp = setup_data_parallel(agent, dist.get_world_size(), replay=replay)
-        rollout = replicate_rollout(stub, dp)
+        rollout = replicate_rollout(stub)
         reduce = dp.allreduce_grads
 
         def timed_reduce(grads):  # the gradient all-reduce of an optimizer step, host clock
@@ -1712,7 +1751,7 @@ def dp_worker(mode: str, out_path: str) -> None:
         rows.append(("pointnet_fused_fwd_idx" if with_idx else "pointnet_fused_fwd_max", int(x.shape[0])))
         return launch(x, params, compute_dtype, with_idx)
 
-    start = (train_state_on_host(agent), replay.generator.get_state())
+    start = (train_state_on_host(agent), index_state(replay))
     pf._forward_kernel = counted
     pf.reset_launch_counts()
     metrics, steps = take_updates(agent, replay, rank)
@@ -1743,7 +1782,7 @@ def dp_worker(mode: str, out_path: str) -> None:
     torch.save(result, out_path)
     if mode == "gloo":  # (a') the planted fault, from the same start: each rank draws for its own rows only
         agent.load_state_dict(start[0])
-        replay.generator.set_state(start[1])
+        set_index_state(replay, start[1])
         dp.sharded_draws = contextlib.nullcontext
         f_metrics, f_steps = take_updates(agent, replay, rank)
         f_final = train_state_on_host(agent)
@@ -1763,19 +1802,24 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def run_dp_workers(work: str, mode: str, n: int, extra_env=None) -> list:
-    """``n`` processes of ``dp_worker(mode)``, started together; their results."""
+def run_dp_workers(work: str, mode: str, n: int, extra_env=None, phase: str = "dp") -> list:
+    """``n`` processes of ``dp_worker(mode)`` (``phase="hosts"``:
+    ``hosts_worker(mode)``, each rank a host of its own in torchrun's
+    variables), started together; their results."""
     import torch
 
     port = str(_free_port())
     procs, outs = [], []
     for rank in range(n):
-        out = osp.join(work, f"dp_{mode}_{rank}.pt")
-        log = open(osp.join(work, f"dp_{mode}_{rank}.log"), "w")
+        out = osp.join(work, f"{phase}_{mode}_{rank}.pt")
+        log = open(osp.join(work, f"{phase}_{mode}_{rank}.log"), "w")
         env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=port, WORLD_SIZE=str(n), RANK=str(rank),
                    OMP_NUM_THREADS="1", **(extra_env or {}))  # as run_rl's ranks: host threads of two ranks contend
-        procs.append((subprocess.Popen([sys.executable, osp.abspath(__file__), "--dp-worker", mode, out], cwd=REPO,
-                                       env=env, stdout=log, stderr=subprocess.STDOUT, start_new_session=True), log))
+        if phase == "hosts":
+            env.update(GROUP_RANK=str(rank), LOCAL_RANK="0", LOCAL_WORLD_SIZE="1")
+        procs.append((subprocess.Popen([sys.executable, osp.abspath(__file__), f"--{phase}-worker", mode, out],
+                                       cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT,
+                                       start_new_session=True), log))
         outs.append(out)
     for proc, log in procs:
         try:
@@ -1788,7 +1832,7 @@ def run_dp_workers(work: str, mode: str, n: int, extra_env=None) -> list:
         log.close()
         if rc != 0:
             with open(log.name) as f:
-                fail(f"dp worker {mode} exited with {rc}:\n{f.read()[-4000:]}")
+                fail(f"{phase} worker {mode} exited with {rc}:\n{f.read()[-4000:]}")
     return [torch.load(o, weights_only=False) for o in outs]
 
 
@@ -1815,12 +1859,12 @@ def check_dp_launches(name: str, res: dict, rows_per_launch: int) -> None:
         fail(f"dp {name}: launches at {sorted(set(res['rows']))}, expected {rows_per_launch} rows each")
 
 
-def report_world(label: str, checks: dict) -> dict:
+def report_world(label: str, checks: dict, tag: str = "dp") -> dict:
     """Print a world's gaps to 1 rank; ``agrees``: each update from the same
     state within DP_TOL but for DP_FLIPS elements, its metrics within
     UPDATE_METRIC_RTOL."""
     for n, worst, key, n_out, total in checks["free"]:
-        print(f"[dp] {label}, free runs after {n} updates: largest gap to 1 rank {worst:.3e} ({key}); "
+        print(f"[{tag}] {label}, free runs after {n} updates: largest gap to 1 rank {worst:.3e} ({key}); "
               f"{n_out} of {total} elements outside rtol {DP_TOL[0]} atol {DP_TOL[1]}", flush=True)
     step = checks["stepwise"]
     u, worst, key, _, total, _ = max(step, key=lambda s: s[1])
@@ -1828,8 +1872,8 @@ def report_world(label: str, checks: dict) -> dict:
     over = sum(s[3] > DP_FLIPS for s in step)
     m = max(s[5] for s in step)
     agrees = most_out <= DP_FLIPS and m <= UPDATE_METRIC_RTOL
-    print(f"[dp] {label}, each of {DP_UPDATES} updates against 1 rank from the same state: largest gap {worst:.3e} "
-          f"({key}, update {u}); {n_out} elements outside rtol {DP_TOL[0]} atol {DP_TOL[1]} in {DP_UPDATES} x "
+    print(f"[{tag}] {label}, each of {len(step)} updates against 1 rank from the same state: largest gap {worst:.3e} "
+          f"({key}, update {u}); {n_out} elements outside rtol {DP_TOL[0]} atol {DP_TOL[1]} in {len(step)} x "
           f"{total} ({least_out} to {most_out} in one update, limit {DP_FLIPS}, {over} updates over it); "
           f"largest update-metric gap "
           f"{m:.3e} relative (limit {UPDATE_METRIC_RTOL}): {'agrees' if agrees else 'differs'}", flush=True)
@@ -1950,8 +1994,264 @@ def phase_dp(card: str, nccl_ranks: int = 1) -> dict:
             "launches": {k: sum(res["launches"][k] for res in (*gloo, *ranks)) for k in TPU_KERNELS}}
 
 
+# ------------------------------------------------------------------ hosts
+# A world launched from outside across hosts (phase 11): each rank a host
+# of its own in torchrun's variables, so each collects, as the JAX
+# package's hosts do.  Two hosts share cuda:0 here over gloo (NCCL refuses
+# two ranks on one GPU), started as torchrun starts ranks, each calling the
+# port's ``run_rl.main``.
+HOSTS_OPTS = [FUSED, "replay_cfg.capacity=4096", "train_cfg.warm_steps=512", "train_cfg.n_checkpoint=-1",
+              "train_cfg.n_eval=-1", "train_cfg.exp_logger_cfg.type=csv", "eval_cfg.save_video=False", "eval_cfg.num=1"]
+HOSTS_TOTAL = 640  # the config's 4 env workers per host: 512 warm-up steps, then 32 cycles of 4 steps and 1 update
+HOSTS_UPDATES = 6  # updates from the trained state, each held to the 1-rank update from the same state
+HOSTS_TIMED = 10  # then updates in lockstep: ms per update
+# (b) full-episode collection: the random warm-up leaves every env at the
+# start of an episode of 50 steps, so a collection of 248 holds 200
+# transitions of full episodes after 50 steps, past 0.8 x 248, and the last
+# 48 after 100.  Host 1, at about 2/3 of host 0's speed, is some 66 steps in
+# when host 0 is done: the vote cuts it there and flushes its partial episodes.
+VOTE_NUM = 248
+VOTE_TOTAL = 512 + 2 * VOTE_NUM
+
+
+def replay_digest(replay) -> str:
+    """sha256 of a host replay's stored transitions, in storage order."""
+    import hashlib
+
+    from pointcloud_rl_torch.utils.tree_ops import tree_leaves
+
+    h = hashlib.sha256()
+    for leaf in tree_leaves(replay.memory):
+        h.update(np.ascontiguousarray(leaf[:len(replay)]).tobytes())
+    return h.hexdigest()
+
+
+def hosts_worker(mode: str, out_path: str) -> None:
+    """One host of the hosts phase (``--hosts-worker MODE OUT``): joins
+    the gloo world on cuda:0, then runs ``run_rl.main`` on the SAC slice
+    at full width, with ``train_rl`` wrapped to keep this rank's result
+    just after it trains: the kernel launches, updates/s, the replay's
+    digest and the parameters.  ``train``: then ``HOSTS_UPDATES`` updates
+    from the trained state (rank 0 keeps each state and holds each update
+    to its own 1-rank update from it, on the same global batch) and
+    ``HOSTS_TIMED`` timed ones.  ``vote``: a full-episode rollout, each
+    collection's env steps, pushes and flushed partial episodes recorded;
+    host 1 steps its envs at about 2/3 of host 0's speed (each
+    ``step_dict`` followed by a sleep of half its time), so the straggler
+    vote cuts it."""
+    import torch
+    import torch.distributed as dist
+
+    from pointcloud_rl_torch.apis import run_rl
+    from pointcloud_rl_torch.env.rollout import Rollout
+    from pointcloud_rl_torch.ops import pointnet_fused as pf
+    from pointcloud_rl_torch.parallel import DataParallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    host = int(os.environ["GROUP_RANK"])
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{os.environ['MASTER_PORT']}",
+                            world_size=int(os.environ["WORLD_SIZE"]), rank=int(os.environ["RANK"]))
+    result: dict = {"calls": []}
+    train_rl = run_rl.train_rl
+
+    def recorded(**kwargs):
+        out = train_rl(**kwargs)
+        torch.cuda.synchronize()
+        result["launches"] = dict(pf.launch_counts)  # run_rl set them to 0 just before training
+        agent, replay = kwargs["agent"], kwargs["replay"]
+        state = train_state_on_host(agent)
+        result.update(out, updates_per_s=out["grad_steps"] / out["main_loop_s"], replay_len=len(replay),
+                      replay_digest=replay_digest(replay),
+                      final={k: state[k] for k in ("model", "target", "log_alpha")})
+        if mode == "train":
+            result["metrics"], steps = take_updates(agent, replay, dist.get_rank(), HOSTS_UPDATES)
+            times = []
+            for u in range(HOSTS_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                agent.update_parameters(replay, HOSTS_UPDATES + u + 1)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            result["ms_per_update"] = 1e3 * float(np.median(times))
+            if dist.get_rank() == 0:  # the same agent as a world of one, from each of the world's states
+                agent.set_data_parallel(DataParallel())
+                result["checks"] = {"stepwise": stepwise_gaps(agent, replay, steps, result["metrics"]), "free": []}
+        return out
+
+    run_rl.train_rl = recorded
+    if mode == "vote":
+        full = Rollout._forward_full_episodes
+
+        def voting(self, pi, num, replay, recent_replay=None):
+            call = {"num": num, "env_steps": 0, "flushed": 0, "voted": False}
+            step, flush, before = self.vec_env.step_dict, replay.push_cached_trajectories, replay.running_count
+
+            def slowed(actions):
+                t0 = time.perf_counter()
+                out = step(actions)
+                call["env_steps"] += 1
+                if host == 1:
+                    time.sleep(0.5 * (time.perf_counter() - t0))
+                return out
+
+            def flushed(max_push=-1):
+                n = flush(max_push=max_push)
+                call.update(voted=True, flushed=call["flushed"] + n)
+                return n
+
+            self.vec_env.step_dict, replay.push_cached_trajectories = slowed, flushed
+            try:
+                return full(self, pi, num, replay, recent_replay)
+            finally:
+                del self.vec_env.step_dict, replay.push_cached_trajectories
+                call["pushed"] = replay.running_count - before
+                result["calls"].append(call)
+
+        Rollout._forward_full_episodes = voting
+        opts = HOSTS_OPTS + ["rollout_cfg.full_episode=True", f"train_cfg.n_steps={VOTE_NUM}",
+                             f"train_cfg.total_steps={VOTE_TOTAL}", f"train_cfg.n_log={VOTE_NUM}"]
+    else:
+        opts = HOSTS_OPTS + [f"train_cfg.total_steps={HOSTS_TOTAL}", "train_cfg.n_log=64"]
+    # a work dir per host in (a), so that what host 1 writes shows; a shared one in (b)
+    root = osp.join(osp.dirname(out_path), f"{mode}_wd" + (f"_host{host}" if mode == "train" else ""))
+    run_rl.main([SLICE_CONFIG, "--work-dir", root, "--seed", "0", "--device", "cuda", "--cfg-options", *opts])
+    result["work_dir"] = osp.join(root, "0")
+    torch.save(result, out_path)
+
+
+def hosts_bitwise(a: dict, b: dict, name: str) -> None:
+    import torch
+
+    for part in ("model", "target"):
+        for key, x in a["final"][part].items():
+            if not torch.equal(x, b["final"][part][key]):
+                fail(f"hosts {name}: {part}.{key} is not bitwise equal across the hosts")
+    if not torch.equal(a["final"]["log_alpha"], b["final"]["log_alpha"]):
+        fail(f"hosts {name}: log_alpha is not bitwise equal across the hosts")
+
+
+def phase_hosts(card: str) -> dict:
+    """A world across hosts: (a) two hosts of one rank on cuda:0 over gloo
+    train the SAC slice with ``run_rl``, each collecting; (b) the same with
+    full-episode collection and host 1 slowed, which the straggler vote
+    must cut."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_hosts_", dir=osp.join(REPO, "build"))
+    try:
+        t0 = time.monotonic()
+        h0, h1 = run_dp_workers(work, "train", 2, phase="hosts")
+        train_s = time.monotonic() - t0
+        if h0["replay_digest"] != h1["replay_digest"] or {h0["replay_len"], h1["replay_len"]} != {HOSTS_TOTAL}:
+            fail(f"hosts: the hosts' replays differ ({h0['replay_len']} / {h1['replay_len']} transitions), though "
+                 "both collect with the same seeds")
+        hosts_bitwise(h0, h1, "after training")
+        if h0["metrics"] != h1["metrics"]:
+            fail("hosts: the update metrics differ across the hosts")
+        for name, res in (("host 0", h0), ("host 1", h1)):
+            check_launches(f"hosts {name}", "training", res["launches"], True, TPU_KERNELS)
+            if res["steps"] != HOSTS_TOTAL or res["grad_steps"] != (HOSTS_TOTAL - 512) // 4:
+                fail(f"hosts {name}: {res['steps']} env steps, {res['grad_steps']} updates")
+        gaps = report_world("2 hosts x 1 rank, gloo", h0["checks"], tag="hosts")
+        if not gaps["agrees"]:
+            fail("hosts: updates from the same state differ from 1 rank")
+        summary = read_summary(h0["work_dir"])
+        if (summary["hosts"], summary["ranks_per_host"], summary["world_size"]) != (2, [1, 1], 2) or \
+                summary["collected_steps_per_host"] != [HOSTS_TOTAL, HOSTS_TOTAL]:
+            fail(f"hosts: run_summary.json says {summary}")
+        models = sorted(os.listdir(osp.join(h0["work_dir"], "models")))
+        host1_files = [osp.relpath(osp.join(d, f), h1["work_dir"])
+                       for d, _, files in os.walk(h1["work_dir"]) for f in files]
+        if models != ["model_final"] or host1_files:
+            fail(f"hosts: rank 0 wrote {models}, host 1's rank {host1_files} (it must write nothing)")
+        read_metrics(osp.join(h0["work_dir"], "logs", "metrics.csv"))
+        print(f"[hosts] (a) 2 hosts x 1 rank on cuda:0 over gloo (gloo stages each all-reduce through the host), "
+              f"run_rl on the SAC slice at full width ({SLICE_CONFIG}, fused, global batch 256 = 128 rows per rank, "
+              f"f32, 4 env workers per host): {HOSTS_TOTAL} env steps and {h0['grad_steps']} updates per host, both "
+              f"replays bitwise equal ({h0['replay_len']} transitions, each host collecting with the same seeds), "
+              f"parameters bitwise equal; kernel launches host 0 {h0['launches']}, host 1 {h1['launches']}; "
+              f"updates/s over the main loop host 0 {h0['updates_per_s']:.1f}, host 1 {h1['updates_per_s']:.1f}; "
+              f"ms per update in lockstep host 0 {h0['ms_per_update']:.2f}, host 1 {h1['ms_per_update']:.2f}; "
+              f"{train_s:.1f} s on {card}", flush=True)
+
+        t1 = time.monotonic()
+        v0, v1 = run_dp_workers(work, "vote", 2, phase="hosts")
+        vote_s = time.monotonic() - t1
+        for name, res in (("host 0", v0), ("host 1", v1)):
+            check_launches(f"hosts vote {name}", "training", res["launches"], True, TPU_KERNELS)
+            bad = [c for c in res["calls"] if not 0.8 * c["num"] <= c["pushed"] <= c["num"]]
+            if bad:
+                fail(f"hosts vote {name}: collections pushed outside [0.8 num, num]: {bad}")
+        if (v0["steps"], v0["grad_steps"], len(v0["calls"])) != (v1["steps"], v1["grad_steps"], len(v1["calls"])):
+            fail(f"hosts vote: the hosts left the loop out of step: {v0['steps']} / {v1['steps']} env steps")
+        cut = [(a, b) for a, b in zip(v0["calls"], v1["calls"]) if b["voted"] and b["env_steps"] < a["env_steps"]]
+        if not cut or not any(b["flushed"] > 0 for _, b in cut):
+            fail(f"hosts vote: host 1 was not cut with partial episodes flushed: host 0 {v0['calls']}, "
+                 f"host 1 {v1['calls']}")
+        vote_summary = read_summary(v0["work_dir"])
+        print(f"[hosts] (b) full-episode collection of {VOTE_NUM} per cycle, host 1 stepping at 2/3 speed: host 0 "
+              f"{[(c['env_steps'], c['pushed']) for c in v0['calls']]}, host 1 "
+              f"{[(c['env_steps'], c['pushed'], c['flushed']) for c in v1['calls']]} (env steps, pushes[, flushed "
+              f"partial-episode transitions]); the vote cut host 1 in {len(cut)} of {len(v1['calls'])} collections; "
+              f"collected per host {vote_summary['collected_steps_per_host']}; both at {v0['steps']} env steps, "
+              f"{v0['grad_steps']} updates; {vote_s:.1f} s on {card}", flush=True)
+        print(f"[time] hosts phase: {time.monotonic() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"train": {f"host{h}": {k: r[k] for k in ("launches", "updates_per_s", "ms_per_update", "steps",
+                                                   "grad_steps")} for h, r in enumerate((h0, h1))},
+            "gaps": gaps, "train_s": train_s,
+            "vote": {f"host{h}": r["calls"] for h, r in enumerate((v0, v1))}, "vote_s": vote_s,
+            "launches": {k: sum(r["launches"][k] for r in (h0, h1, v0, v1)) for k in TPU_KERNELS}}
+
+
+def phase_hosts_nccl(card: str) -> dict:
+    """(c): ``torchrun --nnodes 2`` twice on this machine (static
+    rendezvous), one rank per "host" on its own card over NCCL."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_hosts_nccl_", dir=osp.join(REPO, "build"))
+    try:
+        port = str(_free_port())
+        root = osp.join(work, "torchrun_wd")
+        opts = HOSTS_OPTS + [f"train_cfg.total_steps={HOSTS_TOTAL}", "train_cfg.n_log=64"]
+        procs = []
+        for host in (0, 1):
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "2", "--node-rank", str(host),
+                   "--nproc-per-node", "1", "--master-addr", "127.0.0.1", "--master-port", port,
+                   "-m", "pointcloud_rl_torch.apis.run_rl", SLICE_CONFIG, "--work-dir", root, "--seed", "0",
+                   "--device", "cuda", "--gpu-ids", str(host), "--cfg-options", *opts]
+            log = open(osp.join(work, f"torchrun_{host}.log"), "w")
+            procs.append((subprocess.Popen(cmd, cwd=REPO, stdout=log, stderr=subprocess.STDOUT, start_new_session=True,
+                                           env=dict(os.environ, OMP_NUM_THREADS="1")), log))
+        t0 = time.monotonic()
+        for proc, log in procs:
+            try:
+                rc = proc.wait(timeout=300)
+            except subprocess.TimeoutExpired:
+                for p, _ in procs:
+                    os.killpg(p.pid, 9)
+                    p.wait()
+                rc = "timeout"
+            log.close()
+            if rc != 0:
+                with open(log.name) as f:
+                    fail(f"hosts: torchrun node exited with {rc}:\n{f.read()[-4000:]}")
+        summary = read_summary(osp.join(root, "0"))
+        if (summary["hosts"], summary["world_size"], summary["steps"]) != (2, 2, HOSTS_TOTAL) or \
+                summary["collected_steps_per_host"] != [HOSTS_TOTAL, HOSTS_TOTAL]:
+            fail(f"hosts: the torchrun world's run_summary.json says {summary}")
+        check_launches("hosts torchrun", "training", summary["launches"], True, TPU_KERNELS)
+        if sorted(os.listdir(osp.join(root, "0", "models"))) != ["model_final"]:
+            fail("hosts: the torchrun world wrote other checkpoints than model_final")
+        read_metrics(osp.join(root, "0", "logs", "metrics.csv"))
+        print(f"[hosts] (c) torchrun --nnodes 2 on localhost, NCCL, cuda:0 and cuda:1: {summary['steps']} env steps, "
+              f"{summary['grad_steps']} updates, {summary['updates_per_s']:.1f} updates/s over rank 0's main loop, "
+              f"collected per host {summary['collected_steps_per_host']}, rank 0's launches {summary['launches']}; "
+              f"{time.monotonic() - t0:.1f} s on {card}", flush=True)
+        return {k: summary[k] for k in ("updates_per_s", "launches", "collected_steps_per_host", "grad_steps")}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 # ------------------------------------------------------------ replay I/O
-# The walker recipe's replay persistence below the file (phase 11): the
+# The walker recipe's replay persistence below the file (phase 12): the
 # ring of its config (100000 packed bf16 transitions) filled past one wrap,
 # the ``save_replay`` snapshot of its newest 50000 transitions, the restore
 # into a fresh ring through ``load_hdf5``'s chunk loop, then offline updates
@@ -2186,12 +2486,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
     argv = sys.argv[1:]
-    if "--dp-worker" in argv:  # a process of the dp phase
-        at = argv.index("--dp-worker")
-        dp_worker(argv[at + 1], argv[at + 2])
-        return 0
+    for flag, worker in (("--dp-worker", dp_worker), ("--hosts-worker", hosts_worker)):
+        if flag in argv:  # a process of the dp or the hosts phase
+            at = argv.index(flag)
+            worker(argv[at + 1], argv[at + 2])
+            return 0
     kernels_only = "--kernels-only" in argv
-    # --only PHASE[,PHASE]: runs, encoders, modules, dmc, dp, replay-io (the kernel phase always runs)
+    # --only PHASE[,PHASE]: runs, encoders, modules, dmc, dp, hosts, hosts-nccl, replay-io
+    # (the kernel phase always runs)
     only = set(argv[argv.index("--only") + 1].split(",")) if "--only" in argv else None
 
     def wanted(phase: str) -> bool:
@@ -2256,15 +2558,26 @@ def main() -> int:
         by_run["dmc"] = dmc["launches"]
         print(json.dumps({"dmc": dmc}), flush=True)
         print(f"[time] through the dmc run: {time.monotonic() - t0:.1f} s", flush=True)
+    # --dp-nccl-ranks N: the dp phase's NCCL runs span N cards (one per rank), with a run_rl
+    # --num-devices N; with N >= 2 the hosts-nccl phase runs two torchrun agents over NCCL
+    nccl_ranks = int(argv[argv.index("--dp-nccl-ranks") + 1]) if "--dp-nccl-ranks" in argv else 1
+    if torch.cuda.device_count() < nccl_ranks:
+        fail(f"--dp-nccl-ranks {nccl_ranks}: {torch.cuda.device_count()} cards")
     if wanted("dp"):
-        # --dp-nccl-ranks N: the NCCL runs span N cards (one per rank), with a run_rl --num-devices N
-        nccl_ranks = int(argv[argv.index("--dp-nccl-ranks") + 1]) if "--dp-nccl-ranks" in argv else 1
-        if torch.cuda.device_count() < nccl_ranks:
-            fail(f"--dp-nccl-ranks {nccl_ranks}: {torch.cuda.device_count()} cards")
         dp = phase_dp(card, nccl_ranks)
         by_run["dp"] = dp["launches"]
         print(json.dumps({"dp": dp}), flush=True)
         print(f"[time] through the dp phase: {time.monotonic() - t0:.1f} s", flush=True)
+    if wanted("hosts"):
+        hosts = phase_hosts(card)
+        by_run["hosts"] = hosts["launches"]
+        print(json.dumps({"hosts": hosts}), flush=True)
+        print(f"[time] through the hosts phase: {time.monotonic() - t0:.1f} s", flush=True)
+    if wanted("hosts-nccl") and nccl_ranks > 1:  # (c) two torchrun agents, a card each, over NCCL
+        hosts_nccl = phase_hosts_nccl(card)
+        by_run["hosts_nccl"] = hosts_nccl["launches"]
+        print(json.dumps({"hosts_nccl": hosts_nccl}), flush=True)
+        print(f"[time] through the hosts-nccl phase: {time.monotonic() - t0:.1f} s", flush=True)
     if wanted("replay-io"):
         rio = phase_replay_io(pf, card)
         by_run["replay_io"] = rio["launches"]

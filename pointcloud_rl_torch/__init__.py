@@ -8,3 +8,7 @@ The package imports ``torch`` and never JAX, and nothing of
 Importing this package imports neither torch nor any env module, so env
 worker processes stay light.
 """
+
+from .version import __version__
+
+__all__ = ["__version__"]

@@ -7,13 +7,29 @@ work-dir layout, plus ``--device``::
         --work-dir ./work_dirs/pn_fake --seed 0 --device cuda \\
         --cfg-options replay_cfg.capacity=20000 train_cfg.exp_logger_cfg.type=csv
 
-``--num-devices N`` (or ``--gpu-ids``) with N > 1 trains data-parallel:
-this process spawns N ranks on a free local port, rank r on
+``--num-devices N`` (or ``--gpu-ids``) with N > 1 trains data-parallel on
+one host: this process spawns N ranks on a free local port, rank r on
 ``cuda:<gpu_ids[r]>`` over NCCL (``--device cpu``: N gloo ranks on the
 CPU), and forwards SIGTERM to them.  Rank 0 alone collects, evaluates and
 writes the logs, checkpoints and ``run_summary.json``; see
-``parallel/mesh.py`` and ``train_rl``.  ``--profile N`` traces the first N
-env steps after the warm-up into ``<work_dir>/profile``.
+``parallel/mesh.py`` and ``train_rl``.
+
+Across hosts, a launcher starts this module once per rank (``WORLD_SIZE``
+or ``SLURM_NTASKS`` > 1), e.g. on each of two hosts H = 0, 1::
+
+    torchrun --nnodes 2 --node-rank H --nproc-per-node 1 --master-addr A --master-port P \
+        -m pointcloud_rl_torch.apis.run_rl <config> --device cuda --seed 0 --work-dir <shared dir>
+
+or ``srun`` with ``MASTER_ADDR`` / ``MASTER_PORT`` exported.  Each rank
+joins the world (``parallel.init_distributed``) on ``cuda:<LOCAL_RANK>``
+(or ``--gpu-ids[LOCAL_RANK]``), the ranks are laid out over hosts
+(``parallel.distributed.setup_hosts``), and each host's lead collects with
+the same seeds as every other host, as the JAX package's hosts do, and
+broadcasts its pushes to its host's ranks.  Rank 0 alone evaluates and
+writes.  A resume reads ``<work_dir>/models``, so the work dir must be on a
+filesystem every host sees: a rank that does not see the replay snapshot
+starts with an empty replay.  ``--profile N`` traces the first N env steps
+after the warm-up into ``<work_dir>/profile``.
 
 ``--device cuda`` (the default) raises when no GPU is visible: nothing
 moves to the CPU on its own.  The rollout and the evaluator (whose env
@@ -111,23 +127,37 @@ def resolve_agent_placeholders(cfg: Config, env_info: dict) -> None:
         agent_cfg.to_dict() if hasattr(agent_cfg, "to_dict") else dict(agent_cfg), **kwargs)
 
 
+def launched_world() -> int:
+    """The size of the world a launcher started this process in
+    (``WORLD_SIZE`` or ``SLURM_NTASKS``); 1 without one."""
+    return max(int(os.environ.get(k, "1")) for k in ("WORLD_SIZE", "SLURM_NTASKS"))
+
+
 def main(args=None) -> None:
+    import logging
+
     add_env_vars()
     args = parse_args(args)
-    num_devices = args.num_devices or (len(args.gpu_ids) if args.gpu_ids else 1)
-    if max(int(os.environ.get(k, "1")) for k in ("WORLD_SIZE", "SLURM_NTASKS")) > 1:
-        raise NotImplementedError("a world launched from outside (WORLD_SIZE or SLURM_NTASKS > 1, e.g. torchrun "
-                                  "across hosts) is not ported: run_rl spawns its own ranks on one host with "
-                                  "--num-devices (ROADMAP.md queue A, A10: multi-host, each host collecting)")
+    outside = launched_world()
+    if outside > 1 and args.num_devices is not None:
+        raise ValueError(f"--num-devices {args.num_devices} spawns ranks on one host, but this process is a rank of "
+                         f"a world of {outside} launched from outside (WORLD_SIZE or SLURM_NTASKS): drop "
+                         "--num-devices, the launcher starts the ranks")
+    num_devices = args.num_devices or (len(args.gpu_ids) if args.gpu_ids and outside == 1 else 1)
     cfg = load_config(args.config, args.cfg_options)
     if num_devices > 1:
         check_world(cfg, args, num_devices)
+    elif outside > 1:
+        check_split(cfg, args, outside)
 
     seed = set_host_seed(args.seed)
     work_dir = build_work_dir(cfg, args.config, args.work_dir, args.seed)
-    logger = get_logger("pcrl", work_dir=work_dir if num_devices == 1 else None)
-    logger.info(f"Work dir: {work_dir}; seed: {seed}; device: {args.device}; ranks: {num_devices}")
-    cfg.dump(osp.join(work_dir, time.strftime("%Y%m%d_%H%M%S") + "-config.py"))
+    lead = outside == 1 or int(os.environ.get("RANK", os.environ.get("SLURM_PROCID", "0"))) == 0
+    logger = get_logger("pcrl", work_dir=work_dir if num_devices == 1 and lead else None,
+                        level=logging.INFO if lead else logging.WARNING)
+    logger.info(f"Work dir: {work_dir}; seed: {seed}; device: {args.device}; ranks: {max(num_devices, outside)}")
+    if lead:
+        cfg.dump(osp.join(work_dir, time.strftime("%Y%m%d_%H%M%S") + "-config.py"))
     if args.reproducible:
         from ..utils.collect_env import check_reproducibility
 
@@ -136,8 +166,8 @@ def main(args=None) -> None:
     if num_devices > 1:
         spawn_ranks(work_dir, seed, args, num_devices)
     else:
-        run(cfg, work_dir, seed, args)
-    if args.clean_up:
+        run(cfg, work_dir, seed, args, world=outside)
+    if args.clean_up and lead:
         import shutil
 
         shutil.rmtree(work_dir, ignore_errors=True)
@@ -151,15 +181,21 @@ def gpu_ids_of(args, num_devices: int):
     return ids
 
 
-def check_world(cfg: Config, args, num_devices: int) -> None:
-    """Refuse a data-parallel world that cannot run, before any rank starts:
-    an evaluation, a global batch that does not split over the ranks, and
-    on CUDA fewer GPUs than ranks or two ranks on one GPU (NCCL refuses it)."""
+def check_split(cfg: Config, args, ranks: int) -> None:
+    """Refuse a data-parallel world that cannot run: an evaluation, and a
+    global batch that does not split over the ranks."""
     if args.evaluation:
-        raise ValueError("--evaluation runs in one process: drop --num-devices / --gpu-ids")
+        raise ValueError("--evaluation runs in one process: drop --num-devices / --gpu-ids, or the launcher")
     batch = dict(cfg["agent_cfg"]).get("batch_size")
-    if batch is not None and batch % num_devices:
-        raise ValueError(f"agent_cfg.batch_size={batch} does not split over {num_devices} ranks")
+    if batch is not None and batch % ranks:
+        raise ValueError(f"agent_cfg.batch_size={batch} does not split over {ranks} ranks")
+
+
+def check_world(cfg: Config, args, num_devices: int) -> None:
+    """Refuse a data-parallel world of spawned ranks that cannot run, before
+    any rank starts: ``check_split``, and on CUDA fewer GPUs than ranks or
+    two ranks on one GPU (NCCL refuses it)."""
+    check_split(cfg, args, num_devices)
     if args.device != "cuda":
         return
     import torch
@@ -203,11 +239,13 @@ def spawn_ranks(work_dir: str, seed: int, args, num_devices: int) -> None:
 
 
 def rank_main(rank: int, world: int, port: int, work_dir: str, seed: int, args) -> None:
-    """One data-parallel rank: joins the process group from the environment
-    the spawner sets and runs ``run``; only rank 0 logs below warnings."""
+    """One data-parallel rank of one host: joins the process group from the
+    environment the spawner sets (torchrun's variables) and runs ``run``;
+    only rank 0 logs below warnings."""
     import logging
 
-    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(world), RANK=str(rank))
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world), GROUP_RANK="0")  # one host
     add_env_vars()
     set_host_seed(seed)
     get_logger("pcrl", work_dir=work_dir if rank == 0 else None,
@@ -253,19 +291,47 @@ def restore_replay(replay, work_dir: str) -> int:
     return len(replay)
 
 
+def gpu_of_rank(args) -> int:
+    """The GPU of this rank: ``--gpu-ids[LOCAL_RANK]``, else ``LOCAL_RANK``."""
+    from ..parallel.distributed import local_rank
+
+    local = local_rank()
+    if not args.gpu_ids:
+        return local
+    if local >= len(args.gpu_ids):
+        raise ValueError(f"--gpu-ids {args.gpu_ids} names no GPU for local rank {local}")
+    return args.gpu_ids[local]
+
+
+def join_world(device: str) -> None:
+    """Join the world the environment describes, unless this process has
+    joined one already, and lay its ranks out over hosts."""
+    import torch.distributed as dist
+
+    from ..parallel.distributed import init_distributed, setup_hosts
+
+    if not dist.is_initialized() and not init_distributed(device=device):
+        raise RuntimeError(f"a world of {launched_world()} ranks: set MASTER_ADDR and MASTER_PORT to rank 0's host "
+                           "and a free port (torchrun sets them)")
+    setup_hosts()
+
+
 def run(cfg: Config, work_dir: str, seed: int, args, world: int = 1) -> dict:
     """Build the env side, the agent and the replay, then train (or
     evaluate).  In a data-parallel world of ``world`` ranks this runs on
-    every rank; rank 0 alone builds the rollout and the evaluator."""
+    every rank: each host's lead builds a rollout, seeded as every other
+    host's, and rank 0 alone the evaluator."""
     from ..env import build_evaluation, build_replay, build_rollout, get_env_info
     from ..loggers import build_exp_logger
+    from ..parallel.distributed import host_layout, is_host_lead, per_host
 
     logger = get_logger("pcrl")
-    rank = int(os.environ["RANK"]) if world > 1 else 0
+    rank = 0
     if world > 1:
-        from ..parallel import init_distributed
+        import torch.distributed as dist
 
-        init_distributed(device=args.device)  # from the environment rank_main set
+        join_world(args.device)
+        rank = dist.get_rank()
     env_cfg = cfg["env_cfg"].to_dict() if hasattr(cfg["env_cfg"], "to_dict") else dict(cfg["env_cfg"])
     train_cfg = dict(cfg.get("train_cfg", {}))
     if rank == 0 and (train_cfg.get("save_replay") or 0) > 0:
@@ -282,9 +348,10 @@ def run(cfg: Config, work_dir: str, seed: int, args, world: int = 1) -> dict:
                 f"discrete={env_info['is_discrete']}")
     resolve_agent_placeholders(cfg, env_info)
 
-    # Env workers first (forkserver), then CUDA.
+    # Env workers first (forkserver), then CUDA.  Every host collects with
+    # the same seeds, as the JAX package's hosts do (ROADMAP C9).
     rollout = None
-    if not args.evaluation and "rollout_cfg" in cfg and rank == 0:
+    if not args.evaluation and "rollout_cfg" in cfg and is_host_lead():
         rollout_cfg = dict(cfg["rollout_cfg"])
         rollout_cfg.setdefault("env_cfg", env_cfg)
         rollout_cfg.setdefault("base_seed", seed)
@@ -312,7 +379,7 @@ def run(cfg: Config, work_dir: str, seed: int, args, world: int = 1) -> dict:
             torch.autograd.set_detect_anomaly(True)
         if args.deterministic:
             torch.use_deterministic_algorithms(True)
-        device, device_name = _check_device(args.device, gpu_ids_of(args, world)[rank] if world > 1 else None)
+        device, device_name = _check_device(args.device, gpu_of_rank(args) if world > 1 else None)
         agent_cfg = dict(cfg["agent_cfg"])
         agent_cfg["env_params"] = env_info
         agent_cfg.setdefault("seed", seed)
@@ -328,9 +395,9 @@ def run(cfg: Config, work_dir: str, seed: int, args, world: int = 1) -> dict:
         if world > 1:
             from ..parallel import replicate_rollout, setup_data_parallel
 
-            dp = setup_data_parallel(agent, world, replay=replay)
+            setup_data_parallel(agent, world, replay=replay)
             if "rollout_cfg" in cfg:
-                rollout = replicate_rollout(rollout, dp)
+                rollout = replicate_rollout(rollout)
 
         resume_steps = 0
         resume_path = args.resume_from
@@ -359,6 +426,7 @@ def run(cfg: Config, work_dir: str, seed: int, args, world: int = 1) -> dict:
             summary["eval"] = {"rewards_mean": float(np.mean(rewards)), "lengths_mean": float(np.mean(lens)),
                                "success_rate": float(np.mean(finishes))}
         else:
+            pushed = getattr(replay, "running_count", 0)
             out = train_rl(agent=agent, rollout=rollout, evaluator=evaluator, replay=replay,
                            work_dir=work_dir, exp_logger=exp_logger, resume_steps=resume_steps,
                            eval_num=eval_num, profile_steps=args.profile, expert_replay=expert_replay,
@@ -367,6 +435,11 @@ def run(cfg: Config, work_dir: str, seed: int, args, world: int = 1) -> dict:
             secs = max(out["main_loop_s"], 1e-9)
             summary.update(out, env_steps_per_s=out["main_loop_env_steps"] / secs,
                            updates_per_s=out["grad_steps"] / secs)
+            # the transitions each host's rollout pushed into its replay
+            pushed = getattr(replay, "running_count", 0) - pushed if is_host_lead() else None
+            hosts = host_layout().hosts
+            summary.update(hosts=len(hosts), ranks_per_host=[len(h) for h in hosts],
+                           collected_steps_per_host=per_host(pushed))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         summary["replay"] = replay_summary(replay)
@@ -391,8 +464,11 @@ def run(cfg: Config, work_dir: str, seed: int, args, world: int = 1) -> dict:
         if world > 1:
             import torch.distributed as dist
 
+            from ..parallel.distributed import clear_hosts
+
             if dist.is_initialized():
                 dist.destroy_process_group()
+            clear_hosts()
 
 
 if __name__ == "__main__":

@@ -16,11 +16,12 @@ resume; ``expert_replay`` becomes ``agent.expert_replay``;
 emptied at each log boundary.
 
 A data-parallel agent (``parallel.setup_data_parallel``) runs this loop
-on every rank: the lead's rollout collects and its pushes reach every
-rank's replay (``parallel.replicate_rollout``), each update is split over
-the ranks, one stop flag is agreed per cycle, and the lead alone
-evaluates, logs and saves checkpoints and replay snapshots, while the
-other ranks wait in the next collective.
+on every rank: each host lead's rollout collects and its pushes reach
+every replay of its host (``parallel.replicate_rollout``), each update is
+split over the ranks, one stop flag is agreed per cycle, the episode
+statistics logged are the mean over the hosts (``mean_over_hosts``), and
+rank 0 alone evaluates, logs and saves checkpoints and replay snapshots,
+while the other ranks wait in the next collective.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-from ..parallel.distributed import allreduce_stats
+from ..parallel.distributed import allreduce_stats, is_host_lead, mean_over_hosts
 from ..utils.checkpoint import save_checkpoint
 from ..utils.logger import get_logger
 from ..utils.process import get_total_memory_mb
@@ -181,11 +182,14 @@ def train_rl(
         # ---- logging ----------------------------------------------------
         if log_trigger.check(steps):
             avg_metrics = {k: metric_sums[k] / max(metric_counts[k], 1) for k in metric_sums}
-            env_stats = rollout.episode_stats.get_stats() if rollout is not None else {}
+            env_stats = {}
             if rollout is not None:
+                if is_host_lead():  # the other ranks' rollouts collect nothing
+                    env_stats = rollout.episode_stats.get_stats()
                 rollout.episode_stats.reset_history()
-            # the slowest rank's update time; the episode statistics are
-            # the lead's, whose rollout is the only one
+                # every rank enters: the mean over the hosts' leads
+                env_stats = mean_over_hosts(env_stats)
+            # the slowest rank's update time
             time_sums.update(allreduce_stats({"update_time": time_sums["update_time"]}, op="max"))
             elapsed = time.monotonic() - begin_time
             rate = (steps - begin_steps) / max(elapsed, 1e-9)

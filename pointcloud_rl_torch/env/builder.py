@@ -32,9 +32,9 @@ WRAPPERS = Registry("wrapper")
 def _build_base_env(env_name: str, obs_mode: str, **kwargs) -> Env:
     """Dispatch on env_name to the owning integration.
 
-    The port runs DM Control and the numpy simulators; the MuJoCo
-    manipulation tasks and ManiSkill are not ported (ROADMAP.md item A8),
-    and the gymnasium adapter waits for item A9."""
+    The port runs DM Control, the numpy simulators and, for any other
+    name, the gymnasium registry; the MuJoCo manipulation tasks and
+    ManiSkill are not ported (ROADMAP.md item A8)."""
     if env_name.startswith(("dmc_", "distract_dmc_")):
         from .dmc import build_dmc_env
 
@@ -51,9 +51,15 @@ def _build_base_env(env_name: str, obs_mode: str, **kwargs) -> Env:
         raise NotImplementedError(
             f"env {env_name!r} is not ported to pointcloud_rl_torch: the MuJoCo manipulation tasks and "
             "ManiSkill need assets from outside the repo (ROADMAP.md queue A, item A8)")
-    raise NotImplementedError(
-        f"env {env_name!r} is not ported to pointcloud_rl_torch yet: the gymnasium adapter waits for "
-        "ROADMAP.md queue A, item A9; the port runs dmc_*, reacher3d_easy* and FakeManipulation*")
+    # Fallback: gymnasium registry.
+    try:
+        import gymnasium
+
+        from .gym_adapter import GymnasiumAdapter
+
+        return GymnasiumAdapter(gymnasium.make(env_name, **kwargs))
+    except Exception as e:
+        raise KeyError(f"Unknown env {env_name}: {e}") from e
 
 
 @ENVS.register_module(name="gym")

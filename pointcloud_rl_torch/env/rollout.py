@@ -305,11 +305,20 @@ class Rollout:
 
     def _forward_full_episodes(self, pi, num: int, replay, recent_replay=None) -> Dict[str, Any]:
         """Cache per-worker trajectories; only full episodes enter the replay
-        (reference rollout.py:116-283).  Single host only: the multi-host
-        straggler cutoff of the JAX package waits for multi-GPU support."""
+        (reference rollout.py:116-283), with the DD-PPO-style straggler
+        cutoff (rollout.py:219-221): once this host has >=80% of its quota
+        and at least half of all hosts are done, stop collecting and flush
+        partial episodes.  Single-host runs never trigger the vote."""
+        from ..parallel.distributed import DistVar, num_hosts
+
+        multi_host = num_hosts() > 1
+        num_done = DistVar("rollout_num_done") if multi_host else None
         total = 0
         last = None
         while total < num:
+            if multi_host and total >= 0.8 * num and num_done.get() >= num_hosts() / 2:
+                total += replay.push_cached_trajectories(max_push=num - total)
+                break
             self.timer.skip()
             actions = pi(self.recent_obs, mode="explore")
             self.timer.tick("agent")
@@ -324,6 +333,8 @@ class Rollout:
             total += pushed
             self.timer.tick("copy")
             last = trans
+        if multi_host:
+            num_done.add(1)
         if last is not None:
             last = dict(last)
             last["_stats"] = self._stats(num)

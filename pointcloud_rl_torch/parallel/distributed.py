@@ -8,14 +8,22 @@ gloo for the CPU.  ``allreduce_stats`` reduces a flat dict of host scalars
 in one collective; ``DistVar`` is a one-sided named counter on the process
 group's ``TCPStore``, so a rank may add to it or read it any number of
 times without its peers entering a collective.
+
+A world launched from outside (torchrun, SLURM) spans hosts:
+``setup_hosts`` reads each rank's host from the launcher's environment,
+publishes it on the store and makes one process group per host, so each host lead can collect and broadcast its pushes to the ranks
+of its host alone (``parallel.mesh``); ``mean_over_hosts`` averages the
+host leads' episode statistics.  Without ``setup_hosts`` the world is one
+host, as ``run_rl --num-devices`` spawns it.
 """
 
 from __future__ import annotations
 
 import os
 from datetime import timedelta
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -109,3 +117,139 @@ class DistVar:
         if self._store is None:
             return self._local
         return int(self._store.add(self.key, 0))
+
+
+# ------------------------------------------------------------------ hosts
+class HostLayout:
+    """The world's hosts, each a list of global ranks in ascending order
+    (its lead, the lowest, first), in the order of their leads; ``index``
+    is this rank's host and ``groups[h]`` the process group of host h
+    (None for a host of one rank, and for the whole world when it is one
+    host)."""
+
+    def __init__(self, hosts: List[List[int]], index: int, groups: List[Optional[object]]):
+        self.hosts, self.index, self.groups = hosts, index, groups
+
+
+# The layout of the process group, which is itself the process's global
+# state in torch.distributed; ``clear_hosts`` forgets it with the group.
+_LAYOUT: Optional[HostLayout] = None
+
+
+def launcher_host(rank: int) -> Tuple[int, Optional[int]]:
+    """(host key, ranks the launcher put on that host) of this process:
+    torchrun's ``GROUP_RANK`` and ``LOCAL_WORLD_SIZE``, else SLURM's
+    ``SLURM_NODEID`` and ``SLURM_NTASKS_PER_NODE`` (where it is one
+    number), else a host of its own: one process per host, as the JAX
+    package runs."""
+    env = os.environ
+    for host, local, size in (("GROUP_RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE"),
+                              ("SLURM_NODEID", "SLURM_LOCALID", "SLURM_NTASKS_PER_NODE")):
+        if host in env and local in env:
+            per_host = env.get(size, "")
+            return int(env[host]), int(per_host) if per_host.isdigit() else None
+    return rank, 1
+
+
+def local_rank() -> int:
+    """This process's rank on its host (which GPU it takes), from the
+    launcher's environment; 0 without one."""
+    return int(os.environ.get("LOCAL_RANK", os.environ.get("SLURM_LOCALID", "0")))
+
+
+def setup_hosts() -> HostLayout:
+    """Lay the process group's ranks out over hosts (``launcher_host``) and
+    make each host's process group.  Every rank calls it once, after
+    joining: each publishes its host on the process group's store and
+    reads every other's (no collective, so no device is touched), then
+    calls ``new_group`` for every host of more than one rank, in the same
+    order, the ranks outside a group too.  A host's lead is its lowest
+    global rank, so rank 0 leads host 0."""
+    global _LAYOUT
+    rank, size = dist.get_rank(), dist.get_world_size()
+    store = dist.distributed_c10d._get_default_store()
+    key, per_host = launcher_host(rank)
+    store.set(f"pcrl/hosts/{rank}", str(key))
+    members: Dict[int, List[int]] = {}
+    for r in range(size):
+        members.setdefault(int(store.get(f"pcrl/hosts/{r}")), []).append(r)
+    hosts = sorted(members.values(), key=min)
+    if per_host is not None and per_host != len(members[key]):
+        raise RuntimeError(f"the launcher puts {per_host} ranks on this host (key {key}), "
+                           f"{len(members[key])} joined it: {members[key]}")
+    index = next(i for i, h in enumerate(hosts) if rank in h)
+    groups: List[Optional[object]] = [None] * len(hosts)
+    if len(hosts) > 1:
+        for i, h in enumerate(hosts):
+            if len(h) > 1:
+                groups[i] = dist.new_group(h)
+    _LAYOUT = HostLayout(hosts, index, groups)
+    return _LAYOUT
+
+
+def clear_hosts() -> None:
+    """Forget the layout (the process group it was made for is gone)."""
+    global _LAYOUT
+    _LAYOUT = None
+
+
+def host_layout() -> HostLayout:
+    """The layout ``setup_hosts`` made; without one, the world is one host."""
+    if dist.is_initialized() and _LAYOUT is not None:
+        return _LAYOUT
+    return HostLayout([list(range(world_size()))], 0, [None])  # one host: the world
+
+
+def num_hosts() -> int:
+    return len(host_layout().hosts)
+
+
+def host_index() -> int:
+    return host_layout().index
+
+
+def host_ranks() -> List[int]:
+    """The global ranks of this rank's host, its lead first."""
+    layout = host_layout()
+    return layout.hosts[layout.index]
+
+
+def is_host_lead() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == host_ranks()[0]
+
+
+def host_broadcast(obj):
+    """The host lead's ``obj`` on every rank of its host (pickled, inside
+    the host's process group, from the lead's global rank)."""
+    ranks = host_ranks()
+    if not dist.is_initialized() or len(ranks) == 1:
+        return obj
+    layout = host_layout()
+    box = [obj]
+    dist.broadcast_object_list(box, src=ranks[0], group=layout.groups[layout.index])
+    return box[0]
+
+
+def per_host(value) -> list:
+    """Each host lead's ``value``, in host order (a collective of every
+    rank)."""
+    if world_size() == 1:
+        return [value]
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, value)
+    return [gathered[h[0]] for h in host_layout().hosts]
+
+
+def mean_over_hosts(stats: Dict[str, float]) -> Dict[str, float]:
+    """Episode statistics over hosts: for each key, the mean over the host
+    leads that report it (the other ranks enter with nothing).  Equals the
+    JAX package's ``allreduce_stats(op="mean")`` over hosts where every host
+    reports the same keys; where the key sets differ, a key is averaged
+    over the hosts that have it, where the JAX package's collective would
+    fail or hang.  Every rank calls it; with one host it is the lead's
+    statistics."""
+    if world_size() == 1:
+        return stats
+    reports = per_host(dict(stats) if is_host_lead() else {})
+    keys = dict.fromkeys(k for report in reports for k in report)
+    return {k: float(np.mean([r[k] for r in reports if k in r])) for k in keys}

@@ -18,12 +18,21 @@ state on every rank: inside ``sharded_draws`` a draw over the batch axis
 rank's, so the N-rank update equals the 1-rank update with the noise on,
 up to the order of the gradient sums.
 
-One rank collects: the lead's rollout pushes into its replay, and each
-collection's pushes are broadcast to the other ranks in one collective,
-and they make the same pushes into their replicas (``replicate_rollout``).
-That costs N times the replay memory, as the JAX package's replicated
-storage does.  While the lead collects, evaluates or saves, the other
-ranks wait in their next collective (``distributed.COLLECTIVE_TIMEOUT``).
+One rank per host collects: the host lead's rollout pushes into its
+replay, and each collection's pushes are broadcast to the other ranks of
+its host in one collective, and they make the same pushes into their
+replicas (``replicate_rollout``).  On one host (``run_rl --num-devices``)
+that is rank 0 for every rank.  Across hosts (``distributed.setup_hosts``)
+each host collects into its own replicas, as each of the JAX package's
+processes does: rank r of N then trains on rows ``[r*B/N, (r+1)*B/N)`` of
+the batch its own replica gives, which is the JAX package's update of a
+batch sharded over a mesh that spans the hosts, each device's rows taken
+from its own process's batch.  The hosts are seeded alike, so their
+replicas stay equal until the straggler vote of a full-episode rollout
+cuts a slow host short.  That costs N times the replay memory, as the JAX
+package's replicated storage does.  While the lead collects, evaluates or
+saves, the other ranks wait in their next collective
+(``distributed.COLLECTIVE_TIMEOUT``).
 
 An agent that is no rank of a world holds ``DataParallel()``, a world of
 one without a process group, where every method is the identity.
@@ -39,6 +48,7 @@ import torch
 import torch.distributed as dist
 
 from ..utils.draws import split_draws
+from .distributed import host_broadcast, is_host_lead
 from ..utils.stats import EpisodicStatistics
 from ..utils.tree_ops import tree_map
 
@@ -106,14 +116,6 @@ class DataParallel:
         mask = torch.as_tensor(list(maxed), device=values.device)
         return torch.where(mask, rows.max(dim=0).values, rows.mean(dim=0))
 
-    def broadcast(self, obj: Any) -> Any:
-        """The lead's ``obj`` on every rank (pickled)."""
-        if not self.distributed:
-            return obj
-        box = [obj]
-        dist.broadcast_object_list(box, src=0)
-        return box[0]
-
 
 def setup_data_parallel(agent, world: int, replay=None) -> DataParallel:
     """Make ``agent`` one of ``world`` data-parallel ranks of the process
@@ -172,11 +174,12 @@ class _PushRecorder:
 
 
 class LeadRollout:
-    """The lead's rollout: collects as usual, then broadcasts the pushes."""
+    """A host lead's rollout: collects as usual, then broadcasts the pushes
+    to the other ranks of its host."""
 
-    def __init__(self, rollout, dp: DataParallel):
-        self.rollout, self.dp = rollout, dp
-        dp.broadcast(rollout.num_envs)
+    def __init__(self, rollout):
+        self.rollout = rollout
+        host_broadcast(rollout.num_envs)
 
     def __getattr__(self, name):
         return getattr(self.rollout, name)
@@ -193,22 +196,21 @@ class LeadRollout:
         recorder = _PushRecorder(replay) if replay is not None else None
         out = self.rollout.forward_with_policy(pi, num, recorder, **kwargs) or {}
         t0 = time.monotonic()
-        self.dp.broadcast(recorder.calls if recorder is not None else [])
+        host_broadcast(recorder.calls if recorder is not None else [])
         out.setdefault("_stats", {})["broadcast_time"] = time.monotonic() - t0
         return out
 
 
 class ReplicaRollout:
-    """Another rank's rollout: makes the lead's pushes into its replica."""
+    """Another rank's rollout: makes its host lead's pushes into its replica."""
 
-    def __init__(self, dp: DataParallel):
-        self.dp = dp
-        self.num_envs = dp.broadcast(None)
-        self.episode_stats = EpisodicStatistics(self.num_envs)  # stays empty: the lead's rollout collects
+    def __init__(self):
+        self.num_envs = host_broadcast(None)
+        self.episode_stats = EpisodicStatistics(self.num_envs)  # stays empty: the host lead's rollout collects
 
     def forward_with_policy(self, pi, num: int, replay=None, **kwargs) -> Dict[str, Any]:
         t0 = time.monotonic()
-        for name, args, kw in self.dp.broadcast(None):
+        for name, args, kw in host_broadcast(None):
             getattr(replay, name)(*args, **kw)
         return {"_stats": {"broadcast_time": time.monotonic() - t0}}
 
@@ -216,12 +218,13 @@ class ReplicaRollout:
         pass
 
 
-def replicate_rollout(rollout, dp: DataParallel):
-    """Every rank's view of the one collection: the lead's ``rollout``
-    wrapped to broadcast its pushes, a ``ReplicaRollout`` elsewhere (which
-    pass None).  Call on every rank, in the same order."""
-    if dp.is_lead:
+def replicate_rollout(rollout):
+    """Every rank's view of its host's collection: the host lead's
+    ``rollout`` wrapped to broadcast its pushes, a ``ReplicaRollout`` on
+    the host's other ranks (which pass None).  Call on every rank, in the
+    same order."""
+    if is_host_lead():
         if rollout is None:
-            raise ValueError("the lead rank needs the rollout")
-        return LeadRollout(rollout, dp)
-    return ReplicaRollout(dp)
+            raise ValueError("a host lead needs the rollout")
+        return LeadRollout(rollout)
+    return ReplicaRollout()

@@ -306,8 +306,12 @@ def test_builder_dispatch_names_the_roadmap_items():
 
     with pytest.raises(NotImplementedError, match="A8"):
         _build_base_env("OpenCabinetDrawerMJC_train-v0", "pointcloud")
-    with pytest.raises(NotImplementedError, match="A9"):
-        _build_base_env("Pendulum-v1", "state")
+    # A9 is ported: any other name goes to the gymnasium registry, as in the JAX package
+    from pointcloud_rl_torch.env.gym_adapter import GymnasiumAdapter
+
+    assert isinstance(_build_base_env("Pendulum-v1", "state"), GymnasiumAdapter)
+    with pytest.raises(KeyError, match="Unknown env"):
+        _build_base_env("NoSuchEnv-v0", "state")
 
 
 def test_server_obs_needs_the_pointcloud_mode():

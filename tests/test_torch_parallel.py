@@ -18,8 +18,9 @@ Two gloo ranks, started from the launcher environment as
 
 Then ``run_rl --device cpu --num-devices 2`` trains, evaluates, profiles,
 auto-resumes and stops on SIGTERM with rank 0 writing alone, and the
-refusals: CUDA ranks without a GPU, a batch that does not split, a world
-launched from outside, and the agent's default device without a GPU.
+refusals: CUDA ranks without a GPU, a batch that does not split,
+``--num-devices`` in a world launched from outside, and the agent's
+default device without a GPU.
 """
 
 import csv
@@ -365,9 +366,9 @@ def test_run_rl_two_ranks_train_evaluate_profile_resume_and_sigterm(tmp_path):
 
 
 def test_refusals(tmp_path, monkeypatch):
-    """CUDA ranks without a GPU, a global batch that does not split, a world
-    launched from outside, and an evaluation: each raises before any rank
-    starts."""
+    """CUDA ranks without a GPU, a global batch that does not split, an
+    evaluation, and ``--num-devices`` in a world launched from outside: each
+    raises before any rank starts."""
     from pointcloud_rl_torch.apis import run_rl
 
     def main(*flags, opts=()):
@@ -380,9 +381,10 @@ def test_refusals(tmp_path, monkeypatch):
         main("--num-devices", "2", "--device", "cpu", opts=["agent_cfg.batch_size=15"])
     with pytest.raises(ValueError, match="one process"):
         main("--num-devices", "2", "--device", "cpu", "--evaluation")
+    # a world launched from outside (torchrun, SLURM) starts its own ranks
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="A10"):
-        main("--device", "cpu")
+    with pytest.raises(ValueError, match="--num-devices 2 spawns ranks on one host.*WORLD_SIZE"):
+        main("--num-devices", "2", "--device", "cpu")
 
 
 def test_agent_defaults_to_the_card():

@@ -36,7 +36,8 @@ WALKER_CONFIG = osp.join(REPO, "configs/mfrl/sac/dm_control/pn_walker_tpu.py")
 PORT_SOURCES = sorted(glob.glob(osp.join(REPO, "pointcloud_rl_torch", "**", "*.py"), recursive=True)
                       + [osp.join(REPO, "chip_smoke.py"), osp.join(REPO, "tools", "profile_torch_slice.py"),
                    osp.join(REPO, "tools", "vn_f32_gap.py"), osp.join(REPO, "tools", "replay_snapshot_cost.py"),
-                   osp.join(REPO, "tests", "_torch_dp_worker.py")])
+                   osp.join(REPO, "tests", "_torch_dp_worker.py"),
+                   osp.join(REPO, "tests", "_torch_multihost_worker.py")])
 
 
 def _imported_modules(path):
@@ -330,3 +331,24 @@ def test_io_and_file_client_are_the_originals(tmp_path):
         with pytest.raises(TypeError):
             fc.FileClient.register_backend("bad", dict)
     assert set(t_fc.FileClient._backends) >= {"disk", "http", "lmdb", "memcached", "ceph"}
+
+
+@pytest.mark.parametrize("module", ["env.gym_adapter", "utils.visualization", "version"])
+def test_host_module_copies_are_the_originals(module):
+    """The copies of the last host modules: the same public names with the
+    same signatures, and the same source below the copy line.  Their
+    behaviour is held to the originals' in ``tests/test_torch_host_utils.py``."""
+    import importlib
+    import inspect
+
+    ours = importlib.import_module(f"pointcloud_rl_torch.{module}")
+    theirs = importlib.import_module(f"pointcloud_rl_tpu.{module}")
+    first, rest = open(ours.__file__).read().split("\n", 1)
+    assert first.startswith(f"# Copy of pointcloud_rl_tpu/{module.replace('.', '/')}.py")
+    assert rest == open(theirs.__file__).read()
+    names = {n for n, v in vars(theirs).items() if not n.startswith("_") and getattr(v, "__module__", None)
+             == theirs.__name__}
+    for name in names:
+        a, b = getattr(ours, name), getattr(theirs, name)
+        if callable(b):
+            assert str(inspect.signature(a)) == str(inspect.signature(b)), name
