@@ -4,7 +4,8 @@
     python3 chip_smoke.py               # all phases, one card
     python3 chip_smoke.py --kernels-only
     python3 chip_smoke.py --only dmc    # the kernel phase, then only the named phases
-                                        # (runs, encoders, modules, dmc, dp, hosts, hosts-nccl, replay-io);
+                                        # (runs, encoders, modules, dmc, dp, hosts, hosts-nccl, replay-io,
+                                        # maniskill);
                                         # no result line
     python3 chip_smoke.py --only dp,hosts-nccl --dp-nccl-ranks 4   # on a host of 4 cards
 
@@ -19,8 +20,9 @@ Phases (any failure exits non-zero and prints no result):
    training slices' encoder shapes (SAC f32, DrQ f32 and bf16, the
    recurrent target's 64 x 9 windows in f32; the recurrent critic's 64 x 8
    rows are DrQ's 512; a data-parallel rank's 128 rows of SAC's 256), the act encode's (4 env workers, f32 and bf16),
-   the walker encoder's (f32 and bf16) and the walker act's (16 env
-   workers, bf16), then at edge shapes (one
+   the walker encoder's (f32 and bf16), the walker act's (16 env
+   workers, bf16) and the ManiSkill configs' 9-channel clouds (SAC's 256
+   rows, DrQ's 512, the act's 4, f32), then at edge shapes (one
    batch row, one point, ragged tails, widths that are no multiple of 16):
    pooled values, winner indices (the kernel's winner must attain the plain
    max), bitwise-equal repeated calls, a cloud of three copies of the same
@@ -163,10 +165,29 @@ Phases (any failure exits non-zero and prints no result):
    kernels launched, every logged metric finite.  The HDF5 file between
    snapshot and restore is host code that needs h5py, which the card's
    machine lacks: ``tests/test_torch_replay_io.py`` holds it on the CPU.
-13. One JSON line describing the encoders, one describing the modules, one
-   each for the DMC modules, the DMC run, the dp, hosts and replay-io
-   phases, one describing the kernels, the card's name and power limit, then
-   the result line ``{"ok": true, "device": {...}}``.
+13. The ManiSkill path (``maniskill``) over ``ManiSkillRawStandIn``, defined
+   here only and written with stand-in ``sapien``, ``mani_skill.env`` and
+   ``gym`` modules into a directory on the children's ``PYTHONPATH`` (the
+   env workers start from a forkserver, which sees no module put into this
+   process): (a) SAC on ``configs/mfrl/sac/maniskill/pn.py`` and (b) DrQ on
+   ``configs/mfrl/drq/maniskill/pn_shift.py`` through ``run_rl`` at full
+   width (fused PointNet [128, 128, 256] -> 128 on 9 channels, heads 1024 x
+   1024, batch 256, f32, the config's 4 env workers and host replay of
+   100000), 512 warm-up steps then 1200 (a) or 400 (b) env steps, the
+   first 40 under ``torch.profiler``: every env must have been made by
+   ``pointcloud_rl_torch.env.maniskill`` (the stand-in records who calls
+   ``gym.make``), both kernels launched, no JAX module loaded; env steps/s,
+   updates/s and the device's idle share (busy ms per env step in the
+   trace against the main loop's wall).  Then ``build_env`` here must give
+   the port's ``ManiSkillObsWrapper`` with obs xyz (3, 1200), rgb (3, 1200)
+   uint8, seg (3, 1200), state (38,).  (c) the port's ``mani.Evaluator``
+   over 4 levels of the stand-in built by ``build_env``, with a policy that
+   calls (a)'s trained agent's deterministic act on the card: the
+   ``eval_info`` shares and the CSV.
+14. One JSON line describing the encoders, one describing the modules, one
+   each for the DMC modules, the DMC run, the dp, hosts, replay-io and
+   maniskill phases, one describing the kernels, the card's name and power
+   limit, then the result line ``{"ok": true, "device": {...}}``.
 
 Every time printed here was measured in this run, on the card named in
 phase 1.  The plain versions run with TF32 off
@@ -224,7 +245,9 @@ TPU_KERNELS = {
 # in f32 and in bf16, which are also the recurrent critic's 64 x 8 window
 # rows, the recurrent target's 64 x 9, the act encode at 4 env workers in
 # f32 and in bf16, the walker encoder of the dmc run's updates, and its act
-# encode at 16 env workers), then edge shapes, checked only.
+# encode at 16 env workers, the ManiSkill configs' 9-channel clouds (xyz,
+# rgb and 3 seg masks) at SAC's 256 rows, DrQ's 512 and the act's 4 env
+# workers), then edge shapes, checked only.
 SHAPES = [
     ("slice_f32", 256, 1200, 8, (128, 128, 256), "float32"),
     ("dp_rank_f32", 128, 1200, 8, (128, 128, 256), "float32"),
@@ -236,6 +259,9 @@ SHAPES = [
     ("walker_f32", 256, 1536, 9, (64, 128, 256), "float32"),
     ("walker_bf16", 256, 1536, 9, (64, 128, 256), "bfloat16"),
     ("act_walker_bf16", 16, 1536, 9, (64, 128, 256), "bfloat16"),
+    ("maniskill_f32", 256, 1200, 9, (128, 128, 256), "float32"),
+    ("maniskill_drq_f32", 512, 1200, 9, (128, 128, 256), "float32"),
+    ("maniskill_act_f32", 4, 1200, 9, (128, 128, 256), "float32"),
 ]
 EDGE_SHAPES = [
     ("b1_n1", 1, 1, 8, (128, 128, 256), "float32"),
@@ -510,13 +536,13 @@ def phase_kernels(pf, report: dict, card: str) -> None:
           f"(limit {GRAD_RTOL})", flush=True)
 
 
-def run_cli(config: str, args, log_path: str, timeout: int) -> None:
+def run_cli(config: str, args, log_path: str, timeout: int, env=None) -> None:
     cmd = [sys.executable, "-m", "pointcloud_rl_torch.apis.run_rl", config, *args]
     print("[run] $ " + " ".join(cmd[1:]), flush=True)
     t0 = time.monotonic()
     with open(log_path, "w") as log:
         proc = subprocess.Popen(cmd, cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
-                                start_new_session=True)
+                                start_new_session=True, env=env)
         try:
             rc = proc.wait(timeout=timeout)
         except subprocess.TimeoutExpired:
@@ -2475,6 +2501,358 @@ def phase_replay_io(pf, card: str) -> dict:
     return rec
 
 
+MANISKILL_SAC = "configs/mfrl/sac/maniskill/pn.py"
+MANISKILL_DRQ = "configs/mfrl/drq/maniskill/pn_shift.py"
+# (name, config, metric prefix, env steps after the 512-step warm-up): SAC
+# takes 1200 env steps (300 updates at the config's 4 steps per update),
+# DrQ 400 (100 updates); both at the configs' full widths.
+MANISKILL_RUNS = [("maniskill_sac", MANISKILL_SAC, "sac", 1200), ("maniskill_drq", MANISKILL_DRQ, "drq", 400)]
+MANISKILL_PROFILE_STEPS = 40  # env steps of each run under torch.profiler: the device's busy time
+MANISKILL_LEVELS = (0, 1, 2, 3)  # the evaluator's levels
+MANISKILL_OBS = {"xyz": ((3, 1200), "float32"), "rgb": ((3, 1200), "uint8"), "seg": ((3, 1200), "bool"),
+                 "state": ((38,), "float32")}
+STANDIN_LOG_ENV = "PCRL_MANISKILL_STANDIN_LOG"
+
+
+class ManiSkillRawStandIn:
+    """A stand-in for a ManiSkill task as ``gym.make`` returns it once
+    ``mani_skill.env`` is imported: the fused SAPIEN observation
+    ``{"pointcloud": {"xyz" [n_raw, 3] f32, "rgb" [n_raw, 3] f32 in [0, 1],
+    "seg" [n_raw, 3] bool}, "agent": [38] f32}``, ``set_env_mode``,
+    ``reset(level=)`` and ``info["eval_info"]``.  The scene is procedural
+    and seeded by its level: ground points at z = 0 (which ``pcd_base``
+    drops), three segment clusters (a handle on an object, the object, the
+    robot) and background points; the actions move the robot, the robot
+    pushes the object when it is close, and a seeded jitter moves every
+    point above the ground.  An episode ends after ``HORIZON`` steps, or
+    at success unless ``no_early_stop``.  ``ego_mode`` expresses the points
+    in the robot's frame; ``with_ext_torque`` and ``cos_sin_representation``
+    are accepted and change nothing here.  PushChair and MoveBucket take 22
+    actions (the dual-arm robot), OpenCabinet 13.  The action space is the
+    port's own ``Box``.  Nothing in the package uses this class; it stands
+    in for sapien and mani_skill, which the card's machine lacks."""
+
+    N_GROUND = 1500
+    SEGMENTS = (300, 600, 1100)  # points of the handle, the object and the robot
+    N_BACKGROUND = 2500
+    HORIZON = 200
+    STATE_DIM = 38
+
+    def __init__(self, env_name, ego_mode=False, no_early_stop=False, with_ext_torque=False,
+                 cos_sin_representation=False):
+        from pointcloud_rl_torch.env.spaces import Box
+
+        self.env_name = env_name
+        self.ego_mode, self.no_early_stop = ego_mode, no_early_stop
+        self.action_dim = 13 if env_name.startswith("OpenCabinet") else 22
+        ones = np.ones(self.action_dim, np.float32)
+        self.action_space = Box(-ones, ones)
+        self.obs_mode, self.reward_type = "pointcloud", "dense"
+        self.rs = np.random.RandomState(0)
+        self.n_raw = self.N_GROUND + sum(self.SEGMENTS) + self.N_BACKGROUND
+
+    def set_env_mode(self, obs_mode=None, reward_type=None):
+        if obs_mode not in (None, "pointcloud", "state"):
+            raise ValueError(f"the stand-in renders no {obs_mode!r} observations")
+        self.obs_mode = obs_mode or self.obs_mode
+        self.reward_type = reward_type or self.reward_type
+
+    def seed(self, seed=None):
+        self.rs = np.random.RandomState(seed)
+        self.action_space.seed(seed)
+
+    def reset(self, level=None):
+        self.level = int(self.rs.randint(2**31)) if level is None else int(level)
+        scene = np.random.RandomState(self.level)
+        self.robot = np.array([*scene.uniform(-0.8, -0.4, 2), 0.5])
+        self.obj = np.array([*scene.uniform(-0.3, 0.3, 2), 0.4])
+        self.target = np.array([*scene.uniform(0.4, 0.8, 2), 0.4])
+        self.vel = np.zeros(3)
+        self.last_action = np.zeros(self.action_dim)
+        self.t = 0
+        self.shapes = [scene.normal(0, s, (n, 3)) for n, s in zip(self.SEGMENTS, (0.02, 0.15, 0.12))]
+        self.ground = np.concatenate([scene.uniform(-2, 2, (self.N_GROUND, 2)), np.zeros((self.N_GROUND, 1))], 1)
+        self.background = scene.uniform((-2, -2, 0.05), (2, 2, 1.5), (self.N_BACKGROUND, 3))
+        self.colors = np.concatenate([np.full((n, 3), c) for n, c in zip(
+            (self.N_GROUND, *self.SEGMENTS, self.N_BACKGROUND),
+            ((0.4, 0.4, 0.4), (0.9, 0.8, 0.1), (0.6, 0.3, 0.1), (0.2, 0.4, 0.9), (0.7, 0.7, 0.7)))])
+        return self._obs()
+
+    def _state(self):
+        act = np.zeros(19)
+        act[:min(19, self.action_dim)] = self.last_action[:19]
+        return np.concatenate([self.robot, self.vel, self.obj, self.target, self.obj - self.robot,
+                               self.target - self.obj, [self.t / self.HORIZON], act]).astype(np.float32)
+
+    def _obs(self):
+        state = self._state()
+        if self.obs_mode == "state":
+            return state
+        handle = self.obj + np.array([-0.18, 0.0, 0.1])
+        above = np.concatenate([handle + self.shapes[0], self.obj + self.shapes[1], self.robot + self.shapes[2],
+                                self.background])
+        above = above + self.rs.normal(0, 0.003, above.shape)
+        above[:, 2] = np.maximum(above[:, 2], 0.01)
+        xyz = np.concatenate([self.ground, above])
+        if self.ego_mode:
+            xyz = xyz - np.array([self.robot[0], self.robot[1], 0.0])
+        seg = np.zeros((self.n_raw, 3), bool)
+        start = self.N_GROUND
+        for i, n in enumerate(self.SEGMENTS):
+            seg[start:start + n, i] = True
+            start += n
+        rgb = np.clip(self.colors + self.rs.uniform(-0.05, 0.05, self.colors.shape), 0, 1)
+        return {"pointcloud": {"xyz": xyz.astype(np.float32), "rgb": rgb.astype(np.float32), "seg": seg},
+                "agent": state}
+
+    def step(self, action):
+        a = np.clip(np.asarray(action, np.float64).reshape(-1), -1, 1)
+        self.last_action = a
+        before = self.robot.copy()
+        self.robot = self.robot + 0.03 * a[:3] * np.array([1.0, 1.0, 0.3])
+        self.robot[2] = np.clip(self.robot[2], 0.2, 0.8)
+        self.vel = self.robot - before
+        if np.linalg.norm((self.obj - self.robot)[:2]) < 0.35:  # pushed along the robot's motion
+            self.obj[:2] += 0.8 * self.vel[:2]
+        self.t += 1
+        dist = float(np.linalg.norm((self.obj - self.target)[:2]))
+        reach = float(np.linalg.norm((self.obj - self.robot)[:2]))
+        success = dist < 0.2
+        reward = -dist - 0.5 * reach + (1.0 if success else 0.0)
+        timeout = self.t >= self.HORIZON
+        done = timeout or (success and not self.no_early_stop)
+        info = {"eval_info": {"success": success, "close_to_target": dist < 0.4, "robot_close": reach < 0.35},
+                "TimeLimit.truncated": timeout and not success}
+        return self._obs(), reward, done, info
+
+    def close(self):
+        pass
+
+
+_STANDIN_GYM = '''"""Stand-in for classic gym as mani_skill registers its tasks into it:
+``make`` builds chip_smoke.ManiSkillRawStandIn and, when the environment
+names a log file, records which module called it."""
+import json
+import os
+import sys
+
+sys.path.insert(0, {repo!r})
+from chip_smoke import ManiSkillRawStandIn  # noqa: E402
+
+
+def make(env_name, **kwargs):
+    log = os.environ.get({log_env!r})
+    if log:
+        with open(log, "a") as f:
+            f.write(json.dumps({{"pid": os.getpid(), "caller": sys._getframe(1).f_globals.get("__name__"),
+                                "env_name": env_name, "kwargs": kwargs}}) + "\\n")
+    return ManiSkillRawStandIn(env_name, **kwargs)
+'''
+
+
+def write_maniskill_standin(root: str) -> str:
+    """Write importable ``sapien``, ``mani_skill.env`` and ``gym`` stand-ins
+    into ``root`` (to go on ``sys.path`` and ``PYTHONPATH``); returns it."""
+    for pkg in ("sapien", "mani_skill"):
+        os.makedirs(osp.join(root, pkg), exist_ok=True)
+        with open(osp.join(root, pkg, "__init__.py"), "w") as f:
+            f.write('"""Stand-in: the simulator is absent; chip_smoke.ManiSkillRawStandIn plays its tasks."""\n')
+    with open(osp.join(root, "mani_skill", "env.py"), "w") as f:
+        f.write('"""Stand-in: importing it registers nothing; gym.make builds the stand-in task."""\n')
+    with open(osp.join(root, "gym.py"), "w") as f:
+        f.write(_STANDIN_GYM.format(repo=REPO, log_env=STANDIN_LOG_ENV))
+    return root
+
+
+def standin_env(root: str, log: str) -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([root, REPO] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    env[STANDIN_LOG_ENV] = log
+    return env
+
+
+def trace_busy_ms(path: str) -> tuple:
+    """(device busy ms, device kernel events) of a ``torch.profiler`` chrome
+    trace: the union of its kernel, memcpy and memset intervals."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "ts" in e)
+    busy, end = 0.0, -math.inf
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy / 1e3, sum(1 for e in events if e.get("cat") == "kernel")
+
+
+def maniskill_env_cfg(config: str) -> tuple:
+    """(the config's env config, its eval env config), as ``run_rl`` builds them."""
+    from pointcloud_rl_torch.apis.run_rl import load_config
+
+    cfg = load_config(osp.join(REPO, config))
+    env_cfg = cfg["env_cfg"].to_dict() if hasattr(cfg["env_cfg"], "to_dict") else dict(cfg["env_cfg"])
+    eval_env = dict(env_cfg, **dict(dict(cfg["eval_cfg"]).get("env_cfg", {})))
+    return env_cfg, eval_env
+
+
+def check_maniskill_env(env, name: str) -> dict:
+    """The env must be the port's ``ManiSkillObsWrapper`` around the
+    stand-in; returns the observation's shapes and dtypes."""
+    inner, chain = env, []
+    while True:
+        chain.append(f"{type(inner).__module__}.{type(inner).__name__}")
+        if type(inner).__name__ == "ManiSkillObsWrapper" or not hasattr(inner, "env"):
+            break
+        inner = inner.env
+    if chain[-1] != "pointcloud_rl_torch.env.maniskill.ManiSkillObsWrapper" or \
+            type(inner.env).__name__ != "ManiSkillRawStandIn":
+        fail(f"{name}: the env was built as {chain}, not by pointcloud_rl_torch.env.maniskill around the stand-in")
+    obs = env.reset()
+    got = {k: (tuple(v.shape), str(v.dtype)) for k, v in obs.items()}
+    if got != MANISKILL_OBS:
+        fail(f"{name}: observation {got}, expected {MANISKILL_OBS}")
+    return got
+
+
+def phase_maniskill(card: str) -> dict:
+    """The ManiSkill configs over the stand-in: (a) SAC on ``sac/maniskill/pn.py``
+    and (b) DrQ on ``drq/maniskill/pn_shift.py`` through ``run_rl`` with the
+    config's 4 env workers, (c) the port's ``mani.Evaluator`` with (a)'s agent."""
+    import torch
+
+    from pointcloud_rl_torch.ops import pointnet_fused as pf
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_maniskill_", dir=osp.join(REPO, "build"))
+    root = osp.join(work, "standin")
+    rec: dict = {"runs": {}, "launches": {k: 0 for k in TPU_KERNELS}}
+    try:
+        write_maniskill_standin(root)
+        t0 = time.monotonic()
+        for name, config, prefix, steps in MANISKILL_RUNS:
+            t_run = time.monotonic()
+            log = osp.join(work, f"{name}_standin.jsonl")
+            run_root = osp.join(work, name)
+            run_cli(config, ["--work-dir", run_root, "--seed", "0", "--device", "cuda",
+                             "--profile", str(MANISKILL_PROFILE_STEPS), "--cfg-options", FUSED,
+                             "train_cfg.warm_steps=512", f"train_cfg.total_steps={512 + steps}", "train_cfg.n_log=200",
+                             "train_cfg.n_eval=-1", "train_cfg.n_checkpoint=-1", "train_cfg.exp_logger_cfg.type=csv",
+                             "eval_cfg.save_video=False"],
+                    osp.join(work, f"{name}.log"), timeout=300, env=standin_env(root, log))
+            wd = osp.join(run_root, "0")
+            summary = read_summary(wd)
+            if not summary["device"].startswith("cuda") or summary.get("jax_modules") != []:
+                fail(f"{name}: ran on {summary['device']} with JAX modules {summary.get('jax_modules')}")
+            check_launches(name, "training", summary["launches"], True, TPU_KERNELS)
+            rows = read_metrics(osp.join(wd, "logs", "metrics.csv"))
+            if not any(r.get(f"train/{prefix}/critic_loss") for r in rows):
+                fail(f"{name}: no train/{prefix}/critic_loss was logged")
+            with open(log) as f:
+                made = [json.loads(line) for line in f]
+            env_cfg, eval_env = maniskill_env_cfg(config)
+            # what make_gym_env and build_maniskill_env leave for gym.make: the ManiSkill kwargs
+            want = [{k: v for k, v in c.items() if k not in ("type", "env_name", "obs_mode", "reward_scale")}
+                    for c in (env_cfg, eval_env)]
+            callers = sorted({m["caller"] for m in made})
+            if callers != ["pointcloud_rl_torch.env.maniskill"] or any(m["kwargs"] not in want for m in made) \
+                    or len({m["pid"] for m in made}) < 5:
+                fail(f"{name}: the stand-in was made by {callers} in {len({m['pid'] for m in made})} processes "
+                     f"with {[m['kwargs'] for m in made][:2]}, expected pointcloud_rl_torch.env.maniskill in the "
+                     f"run and its 4 env workers with one of {want}")
+            busy_ms, n_kernels = trace_busy_ms(osp.join(wd, "profile", "trace.json"))
+            busy_step = busy_ms / MANISKILL_PROFILE_STEPS
+            idle = 1.0 - busy_step * summary["env_steps_per_s"] / 1e3
+            run = {"config": config, "env_name": env_cfg["env_name"], "steps": summary["steps"],
+                   "updates": summary["grad_steps"], "env_steps_per_s": summary["env_steps_per_s"],
+                   "updates_per_s": summary["updates_per_s"], "main_loop_s": summary["main_loop_s"],
+                   "device_busy_ms_per_env_step": busy_step, "device_idle_share": idle,
+                   "launches": summary["launches"], "replay": summary["replay"],
+                   "stand_in_made_by": callers[0], "stand_in_processes": len({m["pid"] for m in made}),
+                   "pointcloud_rl_tpu_modules": summary["pointcloud_rl_tpu_modules"],
+                   "jax_modules": summary["jax_modules"], "s": time.monotonic() - t_run}
+            rec["runs"][name] = run
+            for k in TPU_KERNELS:
+                rec["launches"][k] += summary["launches"][k]
+            print(f"[maniskill] {name}: {config} ({env_cfg['env_name']}) at full width (fused PointNet, 4 env "
+                  f"workers, host replay {summary['replay']['capacity']}): {summary['steps']} env steps, "
+                  f"{summary['grad_steps']} updates; the stand-in made by {callers[0]} in "
+                  f"{run['stand_in_processes']} processes; {run['env_steps_per_s']:.1f} env steps/s, "
+                  f"{run['updates_per_s']:.1f} updates/s over the main loop ({summary['main_loop_s']:.1f} s); device "
+                  f"busy {busy_step:.3f} ms per env step under the profiler ({n_kernels} kernels in "
+                  f"{MANISKILL_PROFILE_STEPS} env steps), idle {idle:.1%} of the main loop; kernel launches "
+                  f"{summary['launches']}; JAX modules loaded {summary['jax_modules'] + summary['pointcloud_rl_tpu_modules']}; "
+                  f"{run['s']:.1f} s on {card}", flush=True)
+
+        # the env, built here by the port's build_env: the port's wrapper, the obs shapes
+        sys.path.insert(0, root)
+        from pointcloud_rl_torch.env import build_env
+
+        for name, config, _, _ in MANISKILL_RUNS:
+            env_cfg, _ = maniskill_env_cfg(config)
+            env = build_env(env_cfg)
+            try:
+                rec["runs"][name]["obs"] = shapes = check_maniskill_env(env, name)
+            finally:
+                env.close()
+            print(f"[maniskill] {name}: build_env({env_cfg['env_name']!r}) -> pointcloud_rl_torch.env.maniskill."
+                  f"ManiSkillObsWrapper around the stand-in ({ManiSkillRawStandIn.N_GROUND + sum(ManiSkillRawStandIn.SEGMENTS) + ManiSkillRawStandIn.N_BACKGROUND} raw points, "
+                  f"{ManiSkillRawStandIn.N_GROUND} on the ground); obs {shapes}", flush=True)
+
+        # (c) the evaluator over 4 levels with (a)'s trained agent, deterministic
+        from pointcloud_rl_torch.algorithms import build_agent
+        from pointcloud_rl_torch.mani import BasePolicy, Evaluator
+        from pointcloud_rl_torch.utils.checkpoint import load_checkpoint
+
+        name, config = MANISKILL_RUNS[0][:2]
+        agent_cfg, info, _ = resolved_agent_cfg(config, [FUSED])
+        agent = build_agent(dict(agent_cfg, env_params=info, seed=0, device="cuda"))
+        agent.load_state_dict(load_checkpoint(osp.join(work, name, "0", "models", "model_final"), "cuda"))
+        agent.eval()
+
+        class TrainedPolicy(BasePolicy):
+            def act(self, observation):
+                return agent.forward({k: v[None] for k, v in observation.items()}, mode="eval")[0]
+
+        env_cfg, eval_env = maniskill_env_cfg(config)
+        ev = Evaluator(env_name=env_cfg["env_name"], policy=TrainedPolicy(),
+                       env_cfg={k: v for k, v in eval_env.items() if k not in ("type", "env_name")})
+        try:
+            check_maniskill_env(ev.env, "evaluator")
+            pf.reset_launch_counts()
+            t_ev = time.monotonic()
+            result = ev.run(level_list=MANISKILL_LEVELS, max_steps=ManiSkillRawStandIn.HORIZON)
+            torch.cuda.synchronize()
+            ev_s = time.monotonic() - t_ev
+            launches = dict(pf.launch_counts)
+            csv_path = osp.join(work, "maniskill_eval.csv")
+            ev.export_to_csv(csv_path)
+        finally:
+            ev.close()
+        with open(csv_path) as f:
+            csv_text = f.read()
+        if launches["pointnet_fused_fwd_max"] <= 0 or set(result) != {"success", "close_to_target", "robot_close"} \
+                or not all(0.0 <= v <= 1.0 for v in result.values()):
+            fail(f"maniskill evaluator: result {dict(result)}, launches {launches}")
+        for k in TPU_KERNELS:
+            rec["launches"][k] += launches[k]
+        rec["evaluator"] = {"levels": list(MANISKILL_LEVELS), "result": dict(result), "csv": csv_text,
+                            "launches": launches, "s": ev_s}
+        print(f"[maniskill] (c) mani.Evaluator on {env_cfg['env_name']} levels {list(MANISKILL_LEVELS)} with "
+              f"{name}'s agent (model_final, deterministic act on the card): eval_info shares {dict(result)}; "
+              f"kernel launches {launches}; {ev_s:.1f} s; CSV:\n{csv_text.strip()}", flush=True)
+        print(f"[time] maniskill phase: {time.monotonic() - t0:.1f} s", flush=True)
+    finally:
+        if root in sys.path:
+            sys.path.remove(root)
+        for mod in ("gym", "sapien", "mani_skill", "mani_skill.env", "chip_smoke"):
+            sys.modules.pop(mod, None)
+        keep = osp.join(REPO, "build", "chip_smoke_maniskill_logs")
+        shutil.rmtree(keep, ignore_errors=True)
+        shutil.copytree(work, keep, ignore=shutil.ignore_patterns("models", "*.py", "standin", "profile"))
+        shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
 def main() -> int:
     if not osp.isdir(osp.join(REPO, "pointcloud_rl_torch")):
         fail(f"the port's package is not beside {__file__}; run from a checkout of the repo")
@@ -2492,7 +2870,7 @@ def main() -> int:
             worker(argv[at + 1], argv[at + 2])
             return 0
     kernels_only = "--kernels-only" in argv
-    # --only PHASE[,PHASE]: runs, encoders, modules, dmc, dp, hosts, hosts-nccl, replay-io
+    # --only PHASE[,PHASE]: runs, encoders, modules, dmc, dp, hosts, hosts-nccl, replay-io, maniskill
     # (the kernel phase always runs)
     only = set(argv[argv.index("--only") + 1].split(",")) if "--only" in argv else None
 
@@ -2583,6 +2961,11 @@ def main() -> int:
         by_run["replay_io"] = rio["launches"]
         print(json.dumps({"replay_io": rio}), flush=True)
         print(f"[time] through the replay-io phase: {time.monotonic() - t0:.1f} s", flush=True)
+    if wanted("maniskill"):
+        mani = phase_maniskill(card)
+        by_run["maniskill"] = mani["launches"]
+        print(json.dumps({"maniskill": mani}), flush=True)
+        print(f"[time] through the maniskill phase: {time.monotonic() - t0:.1f} s", flush=True)
 
     launches = {k: (sum(run[k] for run in by_run.values()) if by_run else None) for k in TPU_KERNELS}
     kernels = []
@@ -2599,7 +2982,7 @@ def main() -> int:
             "launches_by_run": {name: run[kname] for name, run in by_run.items()},
             **{f"{shape}_{key}": shp[shape][key]
                for shape in ("drq_f32", "drq_bf16", "rnn_target_f32", "act_f32", "act_bf16", "act_walker_bf16",
-                             "dp_rank_f32")
+                             "dp_rank_f32", "maniskill_f32", "maniskill_drq_f32", "maniskill_act_f32")
                for key in ("ms", "plain_ms", "bound_ms")},
             "walker_f32_ms": shp["walker_f32"]["ms"],
             "walker_bf16_ms": shp["walker_bf16"]["ms"],

@@ -43,8 +43,8 @@ throughput over the main loop, the replay (type, device, bytes of storage;
 ``replay_restored``: the transitions a resume restored from the
 ``train_cfg.save_replay`` snapshot ``models/replay_latest.h5``),
 the fused-PointNet kernel launches of the process, evaluation results, and
-the ``pointcloud_rl_tpu`` modules loaded in the process (none: the port
-stands alone).
+the ``pointcloud_rl_tpu`` and ``jax`` modules loaded in the process
+(none: the port stands alone).
 """
 
 from __future__ import annotations
@@ -446,6 +446,7 @@ def run(cfg: Config, work_dir: str, seed: int, args, world: int = 1) -> dict:
         summary["launches"] = dict(pointnet_fused.launch_counts)
         summary["pointcloud_rl_tpu_modules"] = sorted(
             m for m in sys.modules if m.split(".")[0] == "pointcloud_rl_tpu")
+        summary["jax_modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
         logger.info(f"Fused PointNet kernel launches: {summary['launches']}")
         if rank == 0:
             with open(osp.join(work_dir, "run_summary.json"), "w") as f:

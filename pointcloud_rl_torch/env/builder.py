@@ -32,9 +32,10 @@ WRAPPERS = Registry("wrapper")
 def _build_base_env(env_name: str, obs_mode: str, **kwargs) -> Env:
     """Dispatch on env_name to the owning integration.
 
-    The port runs DM Control, the numpy simulators and, for any other
-    name, the gymnasium registry; the MuJoCo manipulation tasks and
-    ManiSkill are not ported (ROADMAP.md item A8)."""
+    The port runs DM Control, the numpy simulators, ManiSkill (where
+    ``sapien`` and ``mani_skill`` are installed) and, for any other name,
+    the gymnasium registry; the MuJoCo manipulation tasks (``*MJC*``) are
+    not ported (ROADMAP.md item A8)."""
     if env_name.startswith(("dmc_", "distract_dmc_")):
         from .dmc import build_dmc_env
 
@@ -47,10 +48,14 @@ def _build_base_env(env_name: str, obs_mode: str, **kwargs) -> Env:
         from .fake_manipulation import FakeManipulationEnv
 
         return FakeManipulationEnv(obs_mode=obs_mode, **kwargs)
-    if env_name.startswith(("MoveBucket", "OpenCabinetDoor", "OpenCabinetDrawer", "PushChair")):
+    if env_name.startswith(("MoveBucketMJC", "OpenCabinetDoorMJC", "OpenCabinetDrawerMJC", "PushChairMJC")):
         raise NotImplementedError(
-            f"env {env_name!r} is not ported to pointcloud_rl_torch: the MuJoCo manipulation tasks and "
-            "ManiSkill need assets from outside the repo (ROADMAP.md queue A, item A8)")
+            f"env {env_name!r} is not ported to pointcloud_rl_torch: the MuJoCo manipulation tasks need the A2 "
+            "robot and PartNet-Mobility assets from outside the repo (ROADMAP.md queue A, item A8)")
+    if any(env_name.startswith(p) for p in ("OpenCabinetDoor", "OpenCabinetDrawer", "PushChair", "MoveBucket")):
+        from .maniskill import build_maniskill_env
+
+        return build_maniskill_env(env_name, obs_mode=obs_mode, **kwargs)
     # Fallback: gymnasium registry.
     try:
         import gymnasium

@@ -200,3 +200,45 @@ def test_snapshot_and_restore_run_without_h5py(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "snapshot ok" in out.stdout
+
+
+_MANI = textwrap.dedent("""
+    import sys
+    import numpy as np
+    import pointcloud_rl_torch.mani as mani
+    from pointcloud_rl_torch.env import maniskill
+    from pointcloud_rl_torch.env.builder import _build_base_env
+
+    ctl, ranges = mani.build_joint_controllers([{"action_type": "velocity", "action_range": [-1, 1]}], 20)
+    assert ranges.shape == (1, 2) and mani.Pose([1, 2, 3]).inv().p.tolist() == [-1.0, -2.0, -3.0]
+    cfg, chosen = mani.process_variants(mani.process_variables({"g": "eval(2 * 3)"}, np.random.RandomState(0)),
+                                        np.random.RandomState(0))
+    assert cfg == {"g": 6} and chosen == {}
+    try:
+        mani.load_task_config("task.yml")
+    except ImportError as e:
+        assert "yaml" in str(e)
+    else:
+        raise AssertionError("load_task_config ran without PyYAML")
+    try:
+        _build_base_env("PushChair_3001-v0", "pointcloud")
+    except ImportError as e:
+        assert "sapien" in str(e)
+    else:
+        raise AssertionError("a ManiSkill env was built without sapien")
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
+    assert not bad, bad
+    print("mani ok", maniskill.ManiSkillObsWrapper.__name__)
+""" % (BLOCKED + ("yaml",),))
+
+
+def test_mani_and_the_maniskill_adapter_import_without_jax_and_yaml(tmp_path):
+    """The card's machine has no PyYAML either: ``mani`` imports without
+    it (``config_parser`` imports it where a task file is loaded), and a
+    ManiSkill env name without ``sapien`` raises the adapter's ImportError."""
+    env = _env(tmp_path)
+    (tmp_path / "sitecustomize.py").write_text(_BLOCKER.replace(repr(BLOCKED), repr(BLOCKED + ("yaml",))))
+    out = subprocess.run([sys.executable, "-c", _MANI], env=env, cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "mani ok ManiSkillObsWrapper" in out.stdout
