@@ -21,8 +21,10 @@ Phases (any failure exits non-zero and prints no result):
    recurrent target's 64 x 9 windows in f32; the recurrent critic's 64 x 8
    rows are DrQ's 512; a data-parallel rank's 128 rows of SAC's 256), the act encode's (4 env workers, f32 and bf16),
    the walker encoder's (f32 and bf16), the walker act's (16 env
-   workers, bf16) and the ManiSkill configs' 9-channel clouds (SAC's 256
-   rows, DrQ's 512, the act's 4, f32), then at edge shapes (one
+   workers, bf16), the DrQ walker recipe's update encodes (512 rows, bf16)
+   and the ManiSkill configs' 9-channel clouds (SAC's 256 rows, DrQ's 512,
+   the act's 4, f32), each 4-row act shape also at 2 rows (the pipelined
+   rollout acts on 4 env workers as 2 groups of 2), then at edge shapes (one
    batch row, one point, ragged tails, widths that are no multiple of 16):
    pooled values, winner indices (the kernel's winner must attain the plain
    max), bitwise-equal repeated calls, a cloud of three copies of the same
@@ -184,10 +186,31 @@ Phases (any failure exits non-zero and prints no result):
    over 4 levels of the stand-in built by ``build_env``, with a policy that
    calls (a)'s trained agent's deterministic act on the card: the
    ``eval_info`` shares and the CSV.
-14. One JSON line describing the encoders, one describing the modules, one
-   each for the DMC modules, the DMC run, the dp, hosts, replay-io and
-   maniskill phases, one describing the kernels, the card's name and power
-   limit, then the result line ``{"ok": true, "device": {...}}``.
+14. The pipelined collection path (``pipeline``), in this process: (a)
+   ``forward_async`` of the SAC agent (``pn_fake_manipulation.py``, 4 x 1200
+   x 8, f32) and of the walker agent (``pn_walker_tpu.py``, 16 x 1536 x 9,
+   bf16, float16 act upload) at full width: in eval mode its actions must
+   be bitwise ``forward``'s, its handles must carry a CUDA event, two
+   handles in flight must hold their own actions; host ms to dispatch, ms
+   until ``is_ready()``, ``forward``'s ms and the longest poll.  (b) The DrQ
+   walker recipe ``configs/mfrl/drq/dm_control/pn_shift_tpu.py`` through
+   ``train_rl`` at full width (DrQ, 2 shifted copies, bf16, fused PointNet,
+   a packed ``DeviceReplayMemory`` of 100000, 16 envs in one group, 16 env
+   steps : 16 updates, ``action_lag=1``, its ``stall_timeout``) over
+   ``WalkerRawStandIn`` behind ``ServerObsVectorEnv`` (cheetah needs
+   dm_control): the config's 1000 warm-up steps, then 20 timed and 2
+   profiled cycles; every applied action must be, bitwise, the action
+   dispatched one group-step earlier; every cycle's 16 updates must run as
+   one chunk after its act dispatch, on the buffer before its push; every
+   metric vector finite; both kernels launched.  Then the same with
+   ``action_lag=0`` (each step's own action).  Env steps/s, updates/s and
+   the device's idle share (``torch.profiler`` over the 2 cycles against
+   the timed cycles' wall).
+15. One JSON line describing the encoders, one describing the modules, one
+   each for the DMC modules, the DMC run, the dp, hosts, replay-io,
+   maniskill and pipeline phases, the script's total time, one line
+   describing the kernels, the card's name and power limit, then the
+   result line ``{"ok": true, "device": {...}}``.
 
 Every time printed here was measured in this run, on the card named in
 phase 1.  The plain versions run with TF32 off
@@ -245,9 +268,11 @@ TPU_KERNELS = {
 # in f32 and in bf16, which are also the recurrent critic's 64 x 8 window
 # rows, the recurrent target's 64 x 9, the act encode at 4 env workers in
 # f32 and in bf16, the walker encoder of the dmc run's updates, and its act
-# encode at 16 env workers, the ManiSkill configs' 9-channel clouds (xyz,
+# encode at 16 env workers, the DrQ walker recipe's update encodes of the
+# pipeline phase (2 x 256 rows), the ManiSkill configs' 9-channel clouds (xyz,
 # rgb and 3 seg masks) at SAC's 256 rows, DrQ's 512 and the act's 4 env
-# workers), then edge shapes, checked only.
+# workers; the pipelined rollout acts on 4 env workers as 2 groups of 2, so
+# each act shape of 4 rows has its 2-row twin), then edge shapes, checked only.
 SHAPES = [
     ("slice_f32", 256, 1200, 8, (128, 128, 256), "float32"),
     ("dp_rank_f32", 128, 1200, 8, (128, 128, 256), "float32"),
@@ -256,12 +281,16 @@ SHAPES = [
     ("drq_bf16", 512, 1200, 8, (128, 128, 256), "bfloat16"),
     ("act_f32", 4, 1200, 8, (128, 128, 256), "float32"),
     ("act_bf16", 4, 1200, 8, (128, 128, 256), "bfloat16"),
+    ("act2_f32", 2, 1200, 8, (128, 128, 256), "float32"),
+    ("act2_bf16", 2, 1200, 8, (128, 128, 256), "bfloat16"),
     ("walker_f32", 256, 1536, 9, (64, 128, 256), "float32"),
     ("walker_bf16", 256, 1536, 9, (64, 128, 256), "bfloat16"),
     ("act_walker_bf16", 16, 1536, 9, (64, 128, 256), "bfloat16"),
+    ("walker_drq_bf16", 512, 1536, 9, (64, 128, 256), "bfloat16"),
     ("maniskill_f32", 256, 1200, 9, (128, 128, 256), "float32"),
     ("maniskill_drq_f32", 512, 1200, 9, (128, 128, 256), "float32"),
     ("maniskill_act_f32", 4, 1200, 9, (128, 128, 256), "float32"),
+    ("maniskill_act2_f32", 2, 1200, 9, (128, 128, 256), "float32"),
 ]
 EDGE_SHAPES = [
     ("b1_n1", 1, 1, 8, (128, 128, 256), "float32"),
@@ -1371,9 +1400,9 @@ def phase_dmc_modules(card: str) -> list:
     return results
 
 
-def walker_agent_cfg():
-    """(agent config of ``pn_walker_tpu.py`` resolved against the walker's
-    obs shapes, env info, the config)."""
+def walker_agent_cfg(config: str = WALKER_CONFIG):
+    """(agent config of ``config``, ``pn_walker_tpu.py`` by default,
+    resolved against the walker's obs shapes, env info, the config)."""
     from pointcloud_rl_torch.apis.run_rl import load_config, resolve_agent_placeholders
     from pointcloud_rl_torch.env.spaces import Box
 
@@ -1381,7 +1410,7 @@ def walker_agent_cfg():
     ones = np.ones(WALKER["action_dim"], np.float32)
     info = dict(obs_shape={"xyz": (3, n), "rgb": (3, n), "pos_encoding": (WALKER["frames"], n)},
                 action_shape=WALKER["action_dim"], action_space=Box(-ones, ones), is_discrete=False)
-    cfg = load_config(osp.join(REPO, WALKER_CONFIG))
+    cfg = load_config(osp.join(REPO, config))
     resolve_agent_placeholders(cfg, info)
     return dict(cfg["agent_cfg"]), info, cfg
 
@@ -2026,8 +2055,12 @@ def phase_dp(card: str, nccl_ranks: int = 1) -> dict:
 # package's hosts do.  Two hosts share cuda:0 here over gloo (NCCL refuses
 # two ranks on one GPU), started as torchrun starts ranks, each calling the
 # port's ``run_rl.main``.
+# One pipeline group: with the default two, a collection pushes its two groups' rows in the order
+# their env workers finish, which may differ between the hosts, while (a) holds the hosts' replays
+# bitwise equal and each update to the 1-rank update on rank 0's replica.
 HOSTS_OPTS = [FUSED, "replay_cfg.capacity=4096", "train_cfg.warm_steps=512", "train_cfg.n_checkpoint=-1",
-              "train_cfg.n_eval=-1", "train_cfg.exp_logger_cfg.type=csv", "eval_cfg.save_video=False", "eval_cfg.num=1"]
+              "train_cfg.n_eval=-1", "train_cfg.exp_logger_cfg.type=csv", "eval_cfg.save_video=False", "eval_cfg.num=1",
+              "rollout_cfg.pipeline_groups=1"]
 HOSTS_TOTAL = 640  # the config's 4 env workers per host: 512 warm-up steps, then 32 cycles of 4 steps and 1 update
 HOSTS_UPDATES = 6  # updates from the trained state, each held to the 1-rank update from the same state
 HOSTS_TIMED = 10  # then updates in lockstep: ms per update
@@ -2853,7 +2886,234 @@ def phase_maniskill(card: str) -> dict:
     return rec
 
 
+PIPELINE_CONFIG = "configs/mfrl/drq/dm_control/pn_shift_tpu.py"
+PIPE_SEED = 0
+PIPE_CYCLES = 20  # timed cycles of 16 env steps and 16 updates, after the config's 1000-step warm-up
+PIPE_PROFILED_CYCLES = 2  # more cycles, under torch.profiler: device busy ms and the idle share
+PIPE_LOG_EVERY = 11 * 16  # env steps between the loop's log lines (one inside the run: reduce_metric_vecs)
+ASYNC_REPEATS = 20  # timed forward_async / forward calls per agent
+
+
+def async_check(name: str, agent, batches, card: str) -> dict:
+    """``forward_async`` of a card agent: in eval mode its actions are
+    bitwise ``forward``'s, two handles in flight hold their own actions,
+    ``is_ready()`` never waits; host ms to dispatch, ms until ready and
+    ``forward``'s ms."""
+    import torch
+
+    agent.eval()
+    for obs in batches:  # first calls: cuBLAS handles, allocator
+        agent.forward(obs, mode="eval")
+    torch.cuda.synchronize()
+    first, second = (agent.forward_async(obs, mode="eval") for obs in batches)
+    events = [h._event for h in (first, second)]
+    if not all(isinstance(e, torch.cuda.Event) for e in events):
+        fail(f"pipeline {name}: forward_async of a card agent returned handles without a CUDA event: {events}")
+    got = [np.asarray(first), np.asarray(second)]
+    want = [agent.forward(obs, mode="eval") for obs in batches]
+    if not all(np.array_equal(g, w) for g, w in zip(got, want)) or np.array_equal(got[0], got[1]):
+        fail(f"pipeline {name}: forward_async's actions differ from forward's, or two handles share them")
+    dispatch, ready, polls, fwd = [], [], [], []
+    for _ in range(ASYNC_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handle = agent.forward_async(batches[0], mode="eval")
+        t1 = time.perf_counter()
+        while True:
+            p0 = time.perf_counter()
+            done = handle.is_ready()
+            polls.append(time.perf_counter() - p0)
+            if done:
+                break
+        t2 = time.perf_counter()
+        if not np.array_equal(np.asarray(handle), want[0]):
+            fail(f"pipeline {name}: a repeated forward_async gave other actions")
+        dispatch.append(t1 - t0)
+        ready.append(t2 - t0)
+    for _ in range(ASYNC_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        agent.forward(batches[0], mode="eval")
+        fwd.append(time.perf_counter() - t0)
+    rec = {"rows": int(want[0].shape[0]), "dispatch_ms": 1e3 * float(np.median(dispatch)),
+           "ready_ms": 1e3 * float(np.median(ready)), "forward_ms": 1e3 * float(np.median(fwd)),
+           "max_poll_ms": 1e3 * max(polls), "polls": len(polls)}
+    print(f"[pipeline] (a) {name}: forward_async bitwise equal to forward in eval mode, two handles in flight "
+          f"hold their own actions; median of {ASYNC_REPEATS}: {rec['dispatch_ms']:.3f} host ms to dispatch, "
+          f"{rec['ready_ms']:.3f} ms until ready, forward {rec['forward_ms']:.3f} ms; the longest of "
+          f"{rec['polls']} is_ready() polls {rec['max_poll_ms']:.4f} ms on {card}", flush=True)
+    return rec
+
+
+def pipeline_run(pf, lag: int, work: str, card: str) -> dict:
+    """``pn_shift_tpu.py`` through ``train_rl`` with ``action_lag=lag`` over
+    the walker stand-in: the dispatched and the applied actions, the
+    buffer each update chunk sampled, the metric vectors and the kernel
+    launches are recorded and checked."""
+    import torch
+
+    from pointcloud_rl_torch.algorithms import build_agent
+    from pointcloud_rl_torch.apis.train_rl import train_rl
+    from pointcloud_rl_torch.env import build_replay, build_rollout
+
+    agent_cfg, info, cfg = walker_agent_cfg(PIPELINE_CONFIG)
+    train_cfg = dict(cfg["train_cfg"])
+    n_steps, n_updates, warm = train_cfg["n_steps"], train_cfg["n_updates"], train_cfg["warm_steps"]
+    rollout_cfg = dict(cfg["rollout_cfg"], action_lag=lag, env_cfg=walker_env_cfg(), base_seed=PIPE_SEED,
+                       vec_backend="thread", device="cuda")
+    rollout = build_rollout(rollout_cfg)
+    agent = build_agent(dict(agent_cfg, env_params=info, seed=PIPE_SEED, device="cuda"))
+    replay = build_replay(cfg["replay_cfg"], dict(seed=PIPE_SEED), device=agent.device)
+    events, dispatched, vecs, cycles = [], [], [], []
+    acts = torch.profiler.ProfilerActivity
+    forward_async, push_batch, scan = agent.forward_async, replay.push_batch, agent.update_parameters_scan
+    collect = rollout.forward_with_policy
+
+    def recorded_forward_async(obs, mode="explore", **kwargs):
+        handle = forward_async(obs, mode=mode, **kwargs)
+        dispatched.append(handle)
+        return handle
+
+    def recorded_push(batch):
+        events.append(("push", len(replay), np.array(batch["actions"])))
+        return push_batch(batch)
+
+    def recorded_scan(memory, n):
+        events.append(("scan", len(memory), n))
+        vec = scan(memory, n)
+        vecs.append(vec)
+        return vec
+
+    def timed_collect(pi, num, replay=None, **kwargs):
+        if pi is None:  # the warm-up
+            return collect(pi, num, replay, **kwargs)
+        if len(cycles) >= PIPE_CYCLES:
+            box = {}
+            host, busy = profiled(lambda: box.update(out=collect(pi, num, replay, **kwargs)), acts)
+            cycles.append((host / 1e3, busy))
+            return box["out"]
+        t0 = time.perf_counter()
+        out = collect(pi, num, replay, **kwargs)
+        cycles.append((time.perf_counter() - t0, None))
+        return out
+
+    agent.forward_async, replay.push_batch, agent.update_parameters_scan = (
+        recorded_forward_async, recorded_push, recorded_scan)
+    rollout.forward_with_policy = timed_collect
+    total = warm + (PIPE_CYCLES + PIPE_PROFILED_CYCLES) * n_steps
+    try:
+        pf.reset_launch_counts()
+        out = train_rl(agent, rollout, None, replay, work_dir=work, total_steps=total, warm_steps=warm,
+                       n_steps=n_steps, n_updates=n_updates, n_log=PIPE_LOG_EVERY, n_eval=-1, n_checkpoint=-1,
+                       stall_timeout=train_cfg["stall_timeout"])
+        torch.cuda.synchronize()
+        launches = dict(pf.launch_counts)
+    finally:
+        rollout.close()
+    # the applied actions: the dispatch of the previous group-step (lag 1) or their own (lag 0)
+    pushes = [e for e in events if e[0] == "push"][1:]  # after the warm-up's one push
+    n_cycles = PIPE_CYCLES + PIPE_PROFILED_CYCLES
+    if len(pushes) != n_cycles or len(dispatched) != n_cycles:
+        fail(f"pipeline lag {lag}: {len(pushes)} pushes and {len(dispatched)} act dispatches for {n_cycles} cycles")
+    actions = [np.asarray(h) for h in dispatched]
+    for c, (_, _, applied) in enumerate(pushes):
+        src = max(c - lag, 0)
+        if not np.array_equal(applied, actions[src]):
+            fail(f"pipeline lag {lag}: cycle {c} applied other actions than dispatch {src}")
+    if lag and any(np.array_equal(actions[c], actions[c - 1]) for c in range(1, n_cycles)):
+        fail("pipeline: two dispatches gave the same actions")
+    # each cycle's updates: one chunk of 16 after its act dispatch, on the buffer before its push
+    want = []
+    for c in range(n_cycles):
+        size = warm + c * n_steps
+        want += [("scan", size, n_updates), ("push", size)]
+    got = [e[:3] if e[0] == "scan" else e[:2] for e in events[1:]]
+    if got != want:
+        fail(f"pipeline lag {lag}: the updates and pushes ran as {got[:6]}..., expected {want[:6]}...")
+    vec_sum = torch.stack(vecs).sum(0)
+    if not bool(torch.isfinite(torch.stack(vecs)).all()):
+        fail(f"pipeline lag {lag}: non-finite update metrics")
+    metrics = agent.reduce_metric_vecs(vec_sum, n_cycles * n_updates)
+    for kname in TPU_KERNELS:
+        if launches[kname] <= 0:
+            fail(f"{kname} was never launched by the pipeline run (lag {lag})")
+    timed = [w for w, busy in cycles[1:PIPE_CYCLES]]  # the first cycle holds first calls
+    wall_cycle = float(np.mean(timed))
+    busy_cycle = float(np.mean([busy for _, busy in cycles[PIPE_CYCLES:]]))
+    rec = {"config": PIPELINE_CONFIG, "action_lag": lag, "envs": rollout.num_envs,
+           "pipeline_groups": rollout.pipeline_groups, "warm_steps": warm, "cycles": n_cycles,
+           "updates": out["grad_steps"], "env_steps": out["steps"], "launches": launches,
+           "env_steps_per_s": n_steps / wall_cycle, "updates_per_s": n_updates / wall_cycle,
+           "ms_per_cycle": 1e3 * wall_cycle, "device_busy_ms_per_cycle": busy_cycle,
+           "device_idle_share": 1.0 - busy_cycle / (1e3 * wall_cycle),
+           "critic_loss_mean": metrics["drq/critic_loss"], "main_loop_s": out["main_loop_s"]}
+    print(f"[pipeline] (b) action_lag={lag}: {rec['env_steps']} env steps ({warm} warm-up, then {n_cycles} cycles "
+          f"of {n_steps} env steps in {rec['pipeline_groups']} group with {n_updates} updates after the act "
+          f"dispatch), {rec['updates']} updates; every applied action row is the dispatch of "
+          f"{'the group-step before' if lag else 'its own step'} (bitwise); every cycle's {n_updates} updates "
+          f"sampled the buffer before its push; metric vectors finite (mean critic loss "
+          f"{rec['critic_loss_mean']:.4g}); kernel launches {launches}", flush=True)
+    print(f"[pipeline] (b) action_lag={lag}: {rec['env_steps_per_s']:.1f} env steps/s and {rec['updates_per_s']:.1f} "
+          f"updates/s over cycles 2-{PIPE_CYCLES} ({rec['ms_per_cycle']:.1f} ms per cycle); device busy "
+          f"{busy_cycle:.2f} ms per cycle over {PIPE_PROFILED_CYCLES} profiled cycles, idle "
+          f"{rec['device_idle_share']:.1%} of the unprofiled cycle on {card}", flush=True)
+    del agent, replay, vecs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_pipeline(pf, card: str) -> dict:
+    """(a) ``forward_async`` of the SAC agent and of the walker agent on the
+    card; (b) the DrQ walker recipe ``pn_shift_tpu.py`` through
+    ``train_rl``: the pipelined rollout with ``action_lag`` 1 (the config's)
+    and 0, updates interleaved with the collection."""
+    import torch
+
+    from pointcloud_rl_torch.algorithms import build_agent
+    from pointcloud_rl_torch.env import build_vec_env
+
+    t0 = time.monotonic()
+    rec: dict = {"forward_async": {}, "runs": {}, "launches": {k: 0 for k in TPU_KERNELS}}
+    agent_cfg, info, env_cfg = resolved_agent_cfg(SLICE_CONFIG, [FUSED])
+    frames = env_frames(env_cfg, 8, seed=2)
+    sac = build_agent(dict(agent_cfg, env_params=info, seed=0, device="cuda"))
+    batches = [{k: v[i:i + 4] for k, v in frames.items()} for i in (0, 4)]
+    rec["forward_async"]["sac"] = async_check(f"SAC {SLICE_CONFIG} (4 x 1200 x 8, f32)", sac, batches, card)
+    del sac
+    agent_cfg, info, _ = walker_agent_cfg()
+    walker = build_agent(dict(agent_cfg, env_params=info, seed=DMC_SEED, device="cuda"))
+    env = build_vec_env(walker_env_cfg(), WALKER["envs"], base_seed=DMC_SEED + 200, vec_backend="thread",
+                        device="cuda")
+    try:
+        first = env.reset()
+        second = env.step(np.stack([env.single_action_space.sample() for _ in range(WALKER["envs"])]))[0]
+    finally:
+        env.close()
+    rec["forward_async"]["walker"] = async_check(
+        f"walker {WALKER_CONFIG} (16 x 1536 x 9, bf16, float16 act upload)", walker, [first, second], card)
+    del walker
+    _, _, cfg = walker_agent_cfg(PIPELINE_CONFIG)
+    steps = cfg["train_cfg"]["warm_steps"] + (PIPE_CYCLES + PIPE_PROFILED_CYCLES) * cfg["train_cfg"]["n_steps"]
+    print(f"[pipeline] cuts of {PIPELINE_CONFIG}: env dmc_cheetah_run-v0 -> chip_smoke.WalkerRawStandIn behind "
+          f"ServerObsVectorEnv (no dm_control on this machine); total_steps {cfg['train_cfg']['total_steps']} -> "
+          f"{steps}; n_log -> {PIPE_LOG_EVERY}; replay capacity {cfg['replay_cfg']['capacity']} (not cut)",
+          flush=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_pipeline_", dir=osp.join(REPO, "build"))
+    try:
+        for lag in (1, 0):
+            run = pipeline_run(pf, lag, osp.join(work, f"lag{lag}"), card)
+            rec["runs"][f"action_lag_{lag}"] = run
+            for k in TPU_KERNELS:
+                rec["launches"][k] += run["launches"][k]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rec["s"] = time.monotonic() - t0
+    print(f"[time] pipeline phase: {rec['s']:.1f} s", flush=True)
+    return rec
+
+
 def main() -> int:
+    t_start = time.monotonic()
     if not osp.isdir(osp.join(REPO, "pointcloud_rl_torch")):
         fail(f"the port's package is not beside {__file__}; run from a checkout of the repo")
     import torch
@@ -2870,8 +3130,8 @@ def main() -> int:
             worker(argv[at + 1], argv[at + 2])
             return 0
     kernels_only = "--kernels-only" in argv
-    # --only PHASE[,PHASE]: runs, encoders, modules, dmc, dp, hosts, hosts-nccl, replay-io, maniskill
-    # (the kernel phase always runs)
+    # --only PHASE[,PHASE]: runs, encoders, modules, dmc, dp, hosts, hosts-nccl, replay-io, maniskill,
+    # pipeline (the kernel phase always runs)
     only = set(argv[argv.index("--only") + 1].split(",")) if "--only" in argv else None
 
     def wanted(phase: str) -> bool:
@@ -2966,6 +3226,11 @@ def main() -> int:
         by_run["maniskill"] = mani["launches"]
         print(json.dumps({"maniskill": mani}), flush=True)
         print(f"[time] through the maniskill phase: {time.monotonic() - t0:.1f} s", flush=True)
+    if wanted("pipeline"):
+        pipe = phase_pipeline(pf, card)
+        by_run["pipeline"] = pipe["launches"]
+        print(json.dumps({"pipeline": pipe}), flush=True)
+        print(f"[time] through the pipeline phase: {time.monotonic() - t0:.1f} s", flush=True)
 
     launches = {k: (sum(run[k] for run in by_run.values()) if by_run else None) for k in TPU_KERNELS}
     kernels = []
@@ -2982,7 +3247,8 @@ def main() -> int:
             "launches_by_run": {name: run[kname] for name, run in by_run.items()},
             **{f"{shape}_{key}": shp[shape][key]
                for shape in ("drq_f32", "drq_bf16", "rnn_target_f32", "act_f32", "act_bf16", "act_walker_bf16",
-                             "dp_rank_f32", "maniskill_f32", "maniskill_drq_f32", "maniskill_act_f32")
+                             "dp_rank_f32", "maniskill_f32", "maniskill_drq_f32", "maniskill_act_f32",
+                             "walker_drq_bf16", "act2_f32", "act2_bf16", "maniskill_act2_f32")
                for key in ("ms", "plain_ms", "bound_ms")},
             "walker_f32_ms": shp["walker_f32"]["ms"],
             "walker_bf16_ms": shp["walker_bf16"]["ms"],
@@ -2990,6 +3256,7 @@ def main() -> int:
             "walker_bf16_bound_ms": shp["walker_bf16"]["bound_ms"],
             "hgmma": hgmma[kname],
         })
+    print(f"[time] total: {time.monotonic() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if kernels_only or only is not None:

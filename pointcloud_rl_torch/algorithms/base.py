@@ -66,6 +66,29 @@ def pack_pointcloud_obs(obs: Dict[str, Any], spec=None):
     return packed, (np.asarray(state, np.float32) if state is not None else None)
 
 
+class ActionHandle:
+    """The actions of one act that ``forward_async`` dispatched.
+
+    ``host`` is a numpy view of host memory that holds only this act's
+    actions once ``event`` (a ``torch.cuda.Event`` recorded after their
+    copy) has completed; without an event they are there already.
+    ``is_ready()`` never blocks, and ``np.asarray(handle)`` waits for the
+    event and returns the actions."""
+
+    def __init__(self, host: np.ndarray, event=None):
+        self._host = host
+        self._event = event
+
+    def is_ready(self) -> bool:
+        return self._event is None or self._event.query()
+
+    def __array__(self, dtype=None, copy=None):
+        if self._event is not None:
+            self._event.synchronize()
+            self._event = None
+        return self._host if dtype is None else self._host.astype(dtype, copy=False)
+
+
 class BaseAgent:
     """Common host plumbing; algorithm classes implement ``act`` and the update."""
 
@@ -141,9 +164,25 @@ class BaseAgent:
         raise NotImplementedError
 
     @torch.no_grad()
+    def forward_async(self, obs, mode: str = "explore", **kwargs) -> "ActionHandle":
+        """Dispatch the act without waiting for its actions (the JAX
+        package's ``forward_async``): the obs go up through ``_upload_obs``,
+        which has read them when it returns; on a card the act runs on the
+        current stream and its actions are copied into pinned host memory
+        without blocking.  ``np.asarray`` on the returned handle waits for
+        them, so the pipelined rollout can step other envs meanwhile."""
+        actions = self.act(self._upload_obs(obs), mode)
+        if actions.device.type == "cpu":
+            return ActionHandle(actions.numpy())
+        host = torch.empty(actions.shape, dtype=actions.dtype, pin_memory=True)
+        host.copy_(actions, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(actions.device))
+        return ActionHandle(host.numpy(), event)
+
     def forward(self, obs, mode: str = "explore", **kwargs) -> np.ndarray:
         """obs (numpy tree, batched) -> actions (numpy [B, A])."""
-        return self.act(self._upload_obs(obs), mode).cpu().numpy()
+        return np.asarray(self.forward_async(obs, mode=mode, **kwargs))
 
     def reset_rnn_states(self, dones=None) -> None:
         """Zero the recurrent states: all of them, or the rows of the envs

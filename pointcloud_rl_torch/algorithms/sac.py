@@ -226,6 +226,47 @@ class SAC(BaseAgent):
         device replay; a recurrent model samples ``[B, H]`` windows).  A
         data-parallel rank samples and prepares the global batch, updates on
         its rows and averages the metrics over the ranks."""
+        vec = self._update_vec(memory)
+        out = dict(zip(self._metric_keys, vec.cpu().tolist()))
+        p = self.metric_prefix
+        if out.pop(f"{p}/actor_updated") < 0.5:
+            for k in _ACTOR_KEYS:
+                out.pop(f"{p}/{k}", None)
+        if not self.is_discrete:
+            out.pop(f"{p}/q_match_rate", None)
+        out[f"{p}/target_entropy"] = self.target_entropy
+        out[f"{p}/grad_steps"] = 1
+        return out
+
+    def update_parameters_scan(self, memory, n: int) -> torch.Tensor:
+        """``n`` gradient steps as ``update_parameters`` takes them, each on
+        its own sample of ``memory``; returns the SUM of their metric
+        vectors on the device, without waiting for it (the counterpart of
+        the JAX package's scanned program).  ``reduce_metric_vecs`` turns
+        sums into the logged averages."""
+        total = None
+        for _ in range(n):
+            vec = self._update_vec(memory)
+            total = vec if total is None else total + vec
+        return total
+
+    def reduce_metric_vecs(self, vec_sum: torch.Tensor, count: int) -> Dict[str, float]:
+        """Average summed metric vectors (one device fetch); the actor's
+        metrics average over the updates where the actor stepped."""
+        sums = dict(zip(self._metric_keys, vec_sum.double().cpu().tolist()))
+        p = self.metric_prefix
+        n_actor = max(sums.pop(f"{p}/actor_updated", count), 1.0)
+        actor_keys = {f"{p}/{k}" for k in _ACTOR_KEYS}
+        metrics = {k: v / (n_actor if k in actor_keys else max(count, 1)) for k, v in sums.items()}
+        if not self.is_discrete:
+            metrics.pop(f"{p}/q_match_rate", None)
+        metrics[f"{p}/target_entropy"] = self.target_entropy
+        metrics[f"{p}/grad_steps"] = count
+        return metrics
+
+    def _update_vec(self, memory) -> torch.Tensor:
+        """One gradient step: its metrics as one vector on the device, in
+        the order of ``_metric_keys``."""
         if self.model.is_recurrent:
             if not hasattr(memory, "sample_windows"):
                 raise TypeError("Recurrent agents need T-step window sampling: use the host ReplayMemory with "
@@ -236,19 +277,9 @@ class SAC(BaseAgent):
         dp = self.data_parallel
         with dp.sharded_draws():
             metrics = self._update_step(dp.shard(self._prepare_batch(sampled)))
-        keys = sorted(metrics)
+        self._metric_keys = keys = sorted(metrics)
         vec = torch.stack([metrics[k].detach().float().reshape(()) for k in keys])
-        vec = dp.reduce_metrics(vec, [k.endswith("/max_critic_abs_err") for k in keys])
-        out = dict(zip(keys, vec.cpu().tolist()))
-        p = self.metric_prefix
-        if out.pop(f"{p}/actor_updated") < 0.5:
-            for k in _ACTOR_KEYS:
-                out.pop(f"{p}/{k}", None)
-        if not self.is_discrete:
-            out.pop(f"{p}/q_match_rate", None)
-        out[f"{p}/target_entropy"] = self.target_entropy
-        out[f"{p}/grad_steps"] = 1
-        return out
+        return dp.reduce_metrics(vec, [k.endswith("/max_critic_abs_err") for k in keys])
 
     def _compute_q_target(self, batch, reward_scale: Optional[float] = None) -> torch.Tensor:
         """Entropy-regularised min-over-heads bootstrap target [B, 1]; call

@@ -67,7 +67,7 @@ from ..utils.seeding import add_env_vars, set_host_seed
 from .train_rl import train_rl
 
 _TRAIN_KEYS = ("total_steps", "warm_steps", "n_steps", "n_updates", "n_log", "n_eval",
-               "n_checkpoint", "on_policy", "ep_stats_cfg", "save_replay")
+               "n_checkpoint", "on_policy", "ep_stats_cfg", "save_replay", "stall_timeout")
 
 
 def parse_args(args=None):

@@ -30,12 +30,7 @@ WRAPPERS = Registry("wrapper")
 
 
 def _build_base_env(env_name: str, obs_mode: str, **kwargs) -> Env:
-    """Dispatch on env_name to the owning integration.
-
-    The port runs DM Control, the numpy simulators, ManiSkill (where
-    ``sapien`` and ``mani_skill`` are installed) and, for any other name,
-    the gymnasium registry; the MuJoCo manipulation tasks (``*MJC*``) are
-    not ported (ROADMAP.md item A8)."""
+    """Dispatch on env_name to the owning integration."""
     if env_name.startswith(("dmc_", "distract_dmc_")):
         from .dmc import build_dmc_env
 
@@ -48,10 +43,27 @@ def _build_base_env(env_name: str, obs_mode: str, **kwargs) -> Env:
         from .fake_manipulation import FakeManipulationEnv
 
         return FakeManipulationEnv(obs_mode=obs_mode, **kwargs)
-    if env_name.startswith(("MoveBucketMJC", "OpenCabinetDoorMJC", "OpenCabinetDrawerMJC", "PushChairMJC")):
-        raise NotImplementedError(
-            f"env {env_name!r} is not ported to pointcloud_rl_torch: the MuJoCo manipulation tasks need the A2 "
-            "robot and PartNet-Mobility assets from outside the repo (ROADMAP.md queue A, item A8)")
+    if env_name.startswith("MoveBucketMJC"):
+        # Real-physics MoveBucket on MuJoCo with the PartNet-Mobility assets
+        # (no SAPIEN needed): MoveBucketMJC_{train,val}-v0
+        from .mujoco_manipulation import MoveBucketEnv
+
+        split = env_name.split("_", 1)[1].split("-")[0] if "_" in env_name else "train"
+        return MoveBucketEnv(split=split, obs_mode=obs_mode, **kwargs)
+    if env_name.startswith(("OpenCabinetDoorMJC", "OpenCabinetDrawerMJC")):
+        # Procedural-cabinet ports of the OpenCabinet tasks on MuJoCo
+        # (no SAPIEN/PartNet cabinets needed):
+        # OpenCabinet{Door,Drawer}MJC_{train,val}-v0
+        from .cabinet_tasks import OpenCabinetDoorEnv, OpenCabinetDrawerEnv
+
+        cls = OpenCabinetDoorEnv if "Door" in env_name else OpenCabinetDrawerEnv
+        split = env_name.split("_", 1)[1].split("-")[0] if "_" in env_name else "train"
+        return cls(split=split, obs_mode=obs_mode, **kwargs)
+    if env_name.startswith("PushChairMJC"):
+        from .chair_task import PushChairEnv
+
+        split = env_name.split("_", 1)[1].split("-")[0] if "_" in env_name else "train"
+        return PushChairEnv(split=split, obs_mode=obs_mode, **kwargs)
     if any(env_name.startswith(p) for p in ("OpenCabinetDoor", "OpenCabinetDrawer", "PushChair", "MoveBucket")):
         from .maniskill import build_maniskill_env
 

@@ -72,6 +72,26 @@ class RunningMeanStd:
         return out.astype(np.float32)
 
 
+class MovingAverage:
+    """Fixed-window moving average of scalars or vectors."""
+
+    def __init__(self, window: int = 100):
+        self.window = window
+        self._items: List[float] = []
+
+    def push(self, value: float) -> None:
+        self._items.append(float(value))
+        if len(self._items) > self.window:
+            self._items.pop(0)
+
+    @property
+    def mean(self) -> float:
+        return float(np.mean(self._items)) if self._items else 0.0
+
+    def __len__(self) -> int:
+        return len(self._items)
+
+
 class EpisodicStatistics:
     """Per-worker running episode returns/lengths with min/mean/max summaries.
 

@@ -5,10 +5,10 @@ resolves its placeholders against the fake env info of that test, and
 builds its agent in the port at the config's full widths on the CPU.  For
 the ManiSkill configs the port's parameters have the names and shapes of
 the JAX package's after ``convert`` (the JAX shapes come from
-``jax.eval_shape`` of the model's init, which compiles nothing).  Where the
-port refuses a config's env, it raises ``NotImplementedError`` naming the
-ROADMAP item; a ManiSkill env without ``sapien`` raises the same
-``ImportError`` as the JAX package.
+``jax.eval_shape`` of the model's init, which compiles nothing).  A
+ManiSkill env without ``sapien`` raises the same ``ImportError`` as the JAX
+package, and a MuJoCo manipulation env (``*MJC*``) without the A2 robot or
+PartNet-Mobility assets raises the JAX package's own error.
 """
 
 import glob
@@ -32,8 +32,6 @@ torch.set_num_threads(1)
 _REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CONFIGS = sorted(osp.relpath(p, _REPO) for p in glob.glob(osp.join(_REPO, "configs/mfrl/**/*.py"), recursive=True))
 MANISKILL = ("OpenCabinetDoor", "OpenCabinetDrawer", "PushChair", "MoveBucket")
-# env names the port refuses, and the ROADMAP item that says why
-REFUSED = {"MJC": "A8"}
 
 
 def _setup(path):
@@ -96,10 +94,18 @@ def test_config_builds_its_agent_in_the_port(path):
         if "sapien" not in sys.modules:
             with pytest.raises(ImportError, match="sapien"):
                 _build_base_env(name, env_cfg.get("obs_mode", "state"))
-    for marker, item in REFUSED.items():
-        if marker in name:
-            with pytest.raises(NotImplementedError, match=item):
-                _build_base_env(name, env_cfg.get("obs_mode", "state"))
+    if "MJC" in name:
+        from pointcloud_rl_torch.env import a2_robot, mujoco_manipulation
+        from pointcloud_rl_tpu.env.builder import _build_base_env as jax_build_base_env
+
+        if not (a2_robot.robot_assets_available() or mujoco_manipulation.assets_available()):
+            errors = []
+            for build in (_build_base_env, jax_build_base_env):
+                with pytest.raises(AssertionError) as info:
+                    build(name, env_cfg.get("obs_mode", "state"))
+                errors.append(str(info.value))
+            assert errors[0] == errors[1], errors
+            assert "A2 robot" in errors[0] or "PartNet-Mobility" in errors[0], errors
 
 
 def test_the_suite_holds_every_config():

@@ -304,7 +304,8 @@ def test_server_env_contract_without_a_simulator(frames):
 def test_builder_dispatch_names_the_roadmap_items():
     from pointcloud_rl_torch.env.builder import _build_base_env
 
-    with pytest.raises(NotImplementedError, match="A8"):
+    # A8 is ported: without the A2 robot's assets a MuJoCo task raises the JAX package's own error
+    with pytest.raises(AssertionError, match="A2 robot assets/configs not found"):
         _build_base_env("OpenCabinetDrawerMJC_train-v0", "pointcloud")
     # A9 is ported: any other name goes to the gymnasium registry, as in the JAX package
     from pointcloud_rl_torch.env.gym_adapter import GymnasiumAdapter

@@ -5,8 +5,8 @@ The adapter (``env/maniskill.py``) runs under the mock SAPIEN stack of
 classic ``gym`` modules): for the same raw observations and the same
 global numpy seed its output equals the JAX adapter's bitwise (point
 cloud, ``target_info``, the image modes' CHW, the state passthrough).  The
-builder routes the ManiSkill names to it and refuses the ``*MJC*`` names
-(ROADMAP A8).  One SAC update of ``sac/maniskill/pn.py`` and one DrQ
+builder routes the ManiSkill names to it and the ``*MJC*`` names to the
+MuJoCo tasks (ROADMAP A8).  One SAC update of ``sac/maniskill/pn.py`` and one DrQ
 update of ``drq/maniskill/pn_shift.py`` at narrow widths, from the same
 converted parameters on the same batch with the draws injected, agree
 with the JAX package's.  Then ``run_rl`` trains both configs, tiny, with
@@ -162,11 +162,19 @@ def test_maniskill_names_reach_the_ports_adapter(name, monkeypatch):
 @pytest.mark.parametrize("name", ["MoveBucketMJC_train-v0", "OpenCabinetDoorMJC_train-v0",
                                   "OpenCabinetDrawerMJC_val-v0", "PushChairMJC_train-v0"])
 def test_mujoco_names_raise_naming_a8(name, monkeypatch):
+    """The ``*MJC*`` names (ROADMAP A8) go to the MuJoCo tasks, not to
+    ManiSkill, even with a simulator present: without the A2 robot or
+    PartNet-Mobility assets they raise the JAX package's own error."""
     from pointcloud_rl_torch.env import build_env
+    from pointcloud_rl_tpu.env import build_env as jax_build_env
 
-    _install_stack(monkeypatch)  # even with a simulator present
-    with pytest.raises(NotImplementedError, match="A8"):
-        build_env(dict(env_name=name, obs_mode="pointcloud"))
+    _install_stack(monkeypatch)
+    errors = []
+    for build in (build_env, jax_build_env):
+        with pytest.raises(AssertionError) as info:
+            build(dict(env_name=name, obs_mode="pointcloud"))
+        errors.append(str(info.value))
+    assert errors[0] == errors[1] and ("A2 robot" in errors[0] or "PartNet-Mobility" in errors[0]), errors
 
 
 # ------------------------------------------------------------- the updates
