@@ -4,8 +4,8 @@
     python3 chip_smoke.py               # all phases, one card
     python3 chip_smoke.py --kernels-only
     python3 chip_smoke.py --only dmc    # the kernel phase, then only the named phases
-                                        # (runs, encoders, modules, dmc, dp, hosts, hosts-nccl, replay-io,
-                                        # maniskill);
+                                        # (graphs, runs, encoders, modules, dmc, dp, hosts, hosts-nccl,
+                                        # replay-io, maniskill, pipeline);
                                         # no result line
     python3 chip_smoke.py --only dp,hosts-nccl --dp-nccl-ranks 4   # on a host of 4 cards
 
@@ -32,6 +32,29 @@ Phases (any failure exits non-zero and prints no result):
    argmax exactly), gradients of ``FusedPointNetBody`` against autograd
    through the plain body, and ms per call of kernel and plain version
    beside the least time the card could take (``bound_ms``).
+3b. The update programs as CUDA graphs (``graphs``), in this process,
+   each against the eager step it captures, bitwise, from one state (two
+   agents, the eager twin loaded from the graphed one): (1) the walker
+   recipe ``pn_walker_tpu.py`` at full width (bf16, batch 256) over its
+   packed ``DeviceReplayMemory`` of 100000 filled with 4096 seeded
+   transitions, rounds of ``update_parameters_scan`` of 16, 3, 16, 3
+   updates (the interval-2 gates' phases 0, 0, 1, 1): round 0 runs each
+   program eagerly, round 1 captures and replays, 2048 more transitions
+   are pushed, round 2 replays; after every scan the parameters, target,
+   optimizer state, ``log_alpha``, update counter, the agent's and the
+   replay's generators and the summed metric vector must be bitwise the
+   eager twin's; (2) the same for the DrQ walker recipe
+   ``pn_shift_tpu.py`` (512 rows, its shift drawn inside the graph);
+   (3) the SAC slice (f32, 256 x 1200 x 8) on host batches through
+   ``update_parameters_lazy`` (the one-update program, the batch copied
+   into its static inputs), 8 updates; the walker's act-fused forwards
+   (``set_fused_updates``: 16 updates then the explore act on 16 envs in
+   one program) against 16 eager updates then the eager act, actions
+   bitwise; one replay of the 16-update program under ``torch.profiler``:
+   the body kernels in its trace must equal the launches it adds to
+   ``launch_counts``.  Per update, eager and graphed: host ms until the
+   call returns, ms until the card is done, device busy ms and the idle
+   share; capture ms per program and the memory its pool reserved.
 4. The slices through the CLI a user runs, in subprocesses, each at its
    config's full widths: it trains a few thousand env steps on the card,
    evaluates from ``model_final`` and resumes with ``--auto-resume``.
@@ -48,7 +71,13 @@ Phases (any failure exits non-zero and prints no result):
    config with ``pn_rnn.py``'s recurrent settings (a GRU of 128 between
    PointNet and the heads, batch 64, ``TStepTransition`` windows of 8 on
    the host replay).  ``ddpg``: DDPG/TD3 on the SAC config.  The voxel run
-   takes 1000 env steps, the others 1200.  Each run starts a fresh
+   takes 1000 env steps, the others 1200.  ``sac`` runs alone, its first
+   40 env steps traced (``run_rl --profile``: device busy ms per env step,
+   the idle share of its main loop); the other five go two at a time
+   (``RUNS_AT_ONCE``), so their rates are those of a shared card and host.
+   The updates replay CUDA graphs (``train_rl``'s lazy updates: the
+   one-update program on the host batch, or over the card's replay for
+   ``drq_device``).  Each run starts a fresh
    process and resets its kernel launch counts to 0 just before it trains
    or evaluates; it writes them to ``run_summary.json``.  The PointNet runs
    must have launched both kernels in training (and the max-only one in
@@ -100,7 +129,8 @@ Phases (any failure exits non-zero and prints no result):
    ``DMCEnv`` ships them in ``obs_mode="raw"``) are ray-cast from a seeded
    procedural scene, fused on the card by the port's ``ServerObsVectorEnv``
    (3 frames), collected by the port's ``Rollout`` and pushed, then 16 env
-   steps and 16 ``update_parameters`` per cycle, as ``train_rl`` does, for
+   steps and one ``update_parameters_scan`` of 16 updates (a CUDA graph) per
+   cycle, as ``train_rl`` does without its hook, the metrics fetched once, for
    the config's 1000 warm-up steps and 22 cycles (the last 2 under
    ``torch.profiler``).  The kernel launch counts are reset just before and
    read just after; both kernels must have launched.  Updates/s, env
@@ -203,12 +233,14 @@ Phases (any failure exits non-zero and prints no result):
    dispatched one group-step earlier; every cycle's 16 updates must run as
    one chunk after its act dispatch, on the buffer before its push; every
    metric vector finite; both kernels launched.  Then the same with
-   ``action_lag=0`` (each step's own action).  Env steps/s, updates/s and
+   ``action_lag=0`` (each step's own action), and with ``action_lag=1``
+   and ``train_rl(..., act_fused_updates=True)`` (each cycle's 16 updates
+   inside the act's program).  Env steps/s, updates/s and
    the device's idle share (``torch.profiler`` over the 2 cycles against
    the timed cycles' wall).
 15. One JSON line describing the encoders, one describing the modules, one
-   each for the DMC modules, the DMC run, the dp, hosts, replay-io,
-   maniskill and pipeline phases, the script's total time, one line
+   each for the graphs phase, the DMC modules, the DMC run, the dp, hosts,
+   replay-io, maniskill and pipeline phases, the script's total time, one line
    describing the kernels, the card's name and power limit, then the
    result line ``{"ok": true, "device": {...}}``.
 
@@ -220,6 +252,7 @@ encoders' convolutions are f32 by their own setting (``ops/conv.py``).
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import csv
 import json
@@ -258,6 +291,8 @@ RUNS = [
                                 "replay_cfg.transfer_cfg.pack_features=True", "agent_cfg.bf16=True"], "drq", True, 1200),
     ("drq_voxel", VOXEL_CONFIG, ["replay_cfg.capacity=20000"], "drq", False, 1000),
 ]
+RUNS_AT_ONCE = 2  # runs of the runs phase that share the card and the host at a time, after the SAC run alone
+RUNS_PROFILE_STEPS = 40  # env steps of the SAC run under torch.profiler: the device's busy time
 KERNEL_SOURCE = "pointcloud_rl_torch/csrc/pointnet_fused.cu"
 TPU_KERNELS = {
     "pointnet_fused_fwd_idx": "pointcloud_rl_tpu/ops/pointnet_fused.py:113",
@@ -621,16 +656,25 @@ def checkpoints(total: int):
     return (f"model_{total // 2}", f"model_{total}", "model_final")
 
 
-def phase_train(work: str, name: str, config: str, opts, prefix: str, pointnet: bool, total: int) -> dict:
-    """Train, evaluate and auto-resume one run; returns its summary."""
+def phase_train(work: str, name: str, config: str, opts, prefix: str, pointnet: bool, total: int,
+                profile: int = 0) -> dict:
+    """Train, evaluate and auto-resume one run; returns its summary.  With
+    ``profile``, the first that many env steps of the training run are
+    traced (``run_rl --profile``): the device's busy ms per env step and
+    its idle share over the main loop."""
     root = osp.join(work, name)
     wd = osp.join(root, "0")  # run_rl appends the seed to --work-dir
     common = ["--work-dir", root, "--seed", "0", "--device", "cuda"]
     opts = list(opts) + ["train_cfg.warm_steps=512", "train_cfg.exp_logger_cfg.type=csv", "train_cfg.n_log=500",
                          f"train_cfg.n_checkpoint={total // 2}", "eval_cfg.save_video=False", "eval_cfg.num=2"]
-    run_cli(config, common + ["--cfg-options", *opts, f"train_cfg.total_steps={total}"],
+    traced = ["--profile", str(profile)] if profile else []
+    run_cli(config, common + traced + ["--cfg-options", *opts, f"train_cfg.total_steps={total}"],
             osp.join(work, f"{name}_train.log"), timeout=420)
     summary = read_summary(wd)
+    if profile:
+        busy_ms, _ = trace_busy_ms(osp.join(wd, "profile", "trace.json"))
+        summary["device_busy_ms_per_env_step"] = busy_ms / profile
+        summary["device_idle_share"] = 1.0 - busy_ms / profile * summary["env_steps_per_s"] / 1e3
     if not summary["device"].startswith("cuda"):
         fail(f"{name} ran on {summary['device']}")
     check_launches(name, "training", summary["launches"], pointnet, TPU_KERNELS)
@@ -1483,18 +1527,17 @@ def phase_dmc(pf, card: str) -> dict:
             fail(f"dmc: the replay is {type(replay).__name__} on {replay.device}, obs "
                  f"{ {k: (tuple(v.shape), v.dtype) for k, v in storage['obs'].items()} }")
         storage_gb = sum(x.nbytes for x in tree_leaves(storage)) / 1e9
-        updates, metrics = 0, []
+        updates, vecs = 0, []
 
-        def collect():  # one collection cycle, then its updates, as train_rl runs them
+        def collect():  # one collection cycle, then its updates, as train_rl runs them without the hook
             agent.eval()
             rollout.forward_with_policy(agent, n_steps, replay)
 
-        def update():
+        def update():  # one program of the cycle's updates; the metrics stay on the card
             nonlocal updates
             agent.train()
-            for _ in range(n_updates):
-                updates += 1
-                metrics.append(agent.update_parameters(replay, updates))
+            vecs.append(agent.update_parameters_scan(replay, n_updates))
+            updates += n_updates
 
         collect_s = update_s = 0.0
         t_loop = time.monotonic()
@@ -1521,9 +1564,9 @@ def phase_dmc(pf, card: str) -> dict:
     for kname in TPU_KERNELS:
         if launches[kname] <= 0:
             fail(f"{kname} was never launched by the dmc run")
-    bad = [(i, k) for i, m in enumerate(metrics) for k, v in m.items() if not math.isfinite(v)]
-    if bad or not any("sac/critic_loss" in m for m in metrics):
-        fail(f"dmc: non-finite or missing update metrics {bad[:5]}")
+    if not bool(torch.isfinite(torch.stack(vecs)).all()):
+        fail("dmc: non-finite update metrics")
+    metrics = agent.reduce_metric_vecs(torch.stack(vecs).sum(0), updates)  # the one fetch, as at log time
     cycles = DMC_CYCLES + DMC_PROFILED_CYCLES
     busy_update = prof["update"][1] / (DMC_PROFILED_CYCLES * n_updates)
     busy_cycle = (prof["collect"][1] + prof["update"][1]) / DMC_PROFILED_CYCLES
@@ -1538,7 +1581,7 @@ def phase_dmc(pf, card: str) -> dict:
         "device_busy_ms_per_collection": prof["collect"][1] / DMC_PROFILED_CYCLES,
         "device_idle_share": 1.0 - busy_cycle / wall_cycle,
         "profiled_host_ms_per_cycle": (prof["collect"][0] + prof["update"][0]) / DMC_PROFILED_CYCLES,
-        "critic_loss_last": metrics[-1]["sac/critic_loss"],
+        "critic_loss_mean": metrics["sac/critic_loss"], "programs": program_stats(agent),
     }
     print(f"[dmc] trained {updates} updates over {rec['env_steps']} env steps ({warm} warm-up, then {cycles} cycles "
           f"of {n_steps} env steps + {n_updates} updates); kernel launches {launches}; replay "
@@ -1823,7 +1866,8 @@ def dp_worker(mode: str, out_path: str) -> None:
         torch.cuda.synchronize()
         t_update.append(time.perf_counter() - t0)
     result = {"final": {k: final[k] for k in ("model", "target", "log_alpha")}, "metrics": metrics,
-              "launches": launches, "rows": rows, "ms_per_update": 1e3 * float(np.median(t_update)),
+              "launches": launches, "rows": rows, "graphed": agent._graphed(),
+              "ms_per_update": 1e3 * float(np.median(t_update)),
               "replay_len": len(replay), "allreduce_ms_per_update": 1e3 * sum(reduce_s) / DP_TIMED,
               "allreduce_calls_per_update": len(reduce_s) / DP_TIMED,
               "broadcast_ms_per_cycle": 1e3 * float(np.median(broadcast_s)),
@@ -1905,12 +1949,17 @@ def dp_bitwise(a: dict, b: dict, name: str) -> None:
 
 def check_dp_launches(name: str, res: dict, rows_per_launch: int) -> None:
     """Exactly one critic encode (with the argmax) and one next-obs encode
-    (max only) per update, each on this rank's rows."""
+    (max only) per update, each on this rank's rows.  An agent outside a
+    process group replays captured graphs: the wrapper sees the launches of
+    each program's eager run and of its capture, and a replay repeats the
+    captured launches (``launch_counts`` counts them), so there every
+    launch the wrapper sees must be on the rows, and of both kernels."""
     want = {"pointnet_fused_fwd_idx": DP_UPDATES, "pointnet_fused_fwd_max": DP_UPDATES}
     if res["launches"] != want:
         fail(f"dp {name}: kernel launches {res['launches']}, expected {want}")
     bad = [r for r in res["rows"] if r[1] != rows_per_launch]
-    if bad or len(res["rows"]) != 2 * DP_UPDATES:
+    seen = len(res["rows"]) if not res["graphed"] else 2 * DP_UPDATES * (set(r[0] for r in res["rows"]) == set(want))
+    if bad or seen != 2 * DP_UPDATES:
         fail(f"dp {name}: launches at {sorted(set(res['rows']))}, expected {rows_per_launch} rows each")
 
 
@@ -2945,11 +2994,11 @@ def async_check(name: str, agent, batches, card: str) -> dict:
     return rec
 
 
-def pipeline_run(pf, lag: int, work: str, card: str) -> dict:
-    """``pn_shift_tpu.py`` through ``train_rl`` with ``action_lag=lag`` over
-    the walker stand-in: the dispatched and the applied actions, the
-    buffer each update chunk sampled, the metric vectors and the kernel
-    launches are recorded and checked."""
+def pipeline_run(pf, lag: int, work: str, card: str, fused: bool = False) -> dict:
+    """``pn_shift_tpu.py`` through ``train_rl`` with ``action_lag=lag`` (and
+    ``act_fused_updates=fused``) over the walker stand-in: the dispatched
+    and the applied actions, the buffer each update chunk sampled, the
+    metric vectors and the kernel launches are recorded and checked."""
     import torch
 
     from pointcloud_rl_torch.algorithms import build_agent
@@ -2967,6 +3016,7 @@ def pipeline_run(pf, lag: int, work: str, card: str) -> dict:
     events, dispatched, vecs, cycles = [], [], [], []
     acts = torch.profiler.ProfilerActivity
     forward_async, push_batch, scan = agent.forward_async, replay.push_batch, agent.update_parameters_scan
+    fused_dispatch, finish_fused = agent._fused_act_dispatch, agent.finish_fused_updates
     collect = rollout.forward_with_policy
 
     def recorded_forward_async(obs, mode="explore", **kwargs):
@@ -2984,6 +3034,19 @@ def pipeline_run(pf, lag: int, work: str, card: str) -> dict:
         vecs.append(vec)
         return vec
 
+    def recorded_fused_dispatch(obs):  # a chunk of updates inside the act, recorded as the hook's scans are
+        size, chunk = len(replay), agent._fused_plan["chunk"]
+        actions = fused_dispatch(obs)
+        if actions is not None:
+            events.append(("scan", size, chunk))
+        return actions
+
+    def recorded_finish():
+        vec, done = finish_fused()
+        if vec is not None:
+            vecs.append(vec)
+        return vec, done
+
     def timed_collect(pi, num, replay=None, **kwargs):
         if pi is None:  # the warm-up
             return collect(pi, num, replay, **kwargs)
@@ -2999,13 +3062,14 @@ def pipeline_run(pf, lag: int, work: str, card: str) -> dict:
 
     agent.forward_async, replay.push_batch, agent.update_parameters_scan = (
         recorded_forward_async, recorded_push, recorded_scan)
+    agent._fused_act_dispatch, agent.finish_fused_updates = recorded_fused_dispatch, recorded_finish
     rollout.forward_with_policy = timed_collect
     total = warm + (PIPE_CYCLES + PIPE_PROFILED_CYCLES) * n_steps
     try:
         pf.reset_launch_counts()
         out = train_rl(agent, rollout, None, replay, work_dir=work, total_steps=total, warm_steps=warm,
                        n_steps=n_steps, n_updates=n_updates, n_log=PIPE_LOG_EVERY, n_eval=-1, n_checkpoint=-1,
-                       stall_timeout=train_cfg["stall_timeout"])
+                       stall_timeout=train_cfg["stall_timeout"], act_fused_updates=fused)
         torch.cuda.synchronize()
         launches = dict(pf.launch_counts)
     finally:
@@ -3037,24 +3101,27 @@ def pipeline_run(pf, lag: int, work: str, card: str) -> dict:
     for kname in TPU_KERNELS:
         if launches[kname] <= 0:
             fail(f"{kname} was never launched by the pipeline run (lag {lag})")
-    timed = [w for w, busy in cycles[1:PIPE_CYCLES]]  # the first cycle holds first calls
+    timed = [w for w, busy in cycles[2:PIPE_CYCLES]]  # the first two hold first calls, the eager run and the capture
     wall_cycle = float(np.mean(timed))
     busy_cycle = float(np.mean([busy for _, busy in cycles[PIPE_CYCLES:]]))
-    rec = {"config": PIPELINE_CONFIG, "action_lag": lag, "envs": rollout.num_envs,
+    rec = {"config": PIPELINE_CONFIG, "action_lag": lag, "act_fused_updates": fused, "envs": rollout.num_envs,
            "pipeline_groups": rollout.pipeline_groups, "warm_steps": warm, "cycles": n_cycles,
            "updates": out["grad_steps"], "env_steps": out["steps"], "launches": launches,
            "env_steps_per_s": n_steps / wall_cycle, "updates_per_s": n_updates / wall_cycle,
            "ms_per_cycle": 1e3 * wall_cycle, "device_busy_ms_per_cycle": busy_cycle,
            "device_idle_share": 1.0 - busy_cycle / (1e3 * wall_cycle),
-           "critic_loss_mean": metrics["drq/critic_loss"], "main_loop_s": out["main_loop_s"]}
+           "critic_loss_mean": metrics["drq/critic_loss"], "main_loop_s": out["main_loop_s"],
+           "programs": program_stats(agent)}
+    where = "inside the act's program (act_fused_updates)" if fused else "after the act dispatch"
     print(f"[pipeline] (b) action_lag={lag}: {rec['env_steps']} env steps ({warm} warm-up, then {n_cycles} cycles "
-          f"of {n_steps} env steps in {rec['pipeline_groups']} group with {n_updates} updates after the act "
-          f"dispatch), {rec['updates']} updates; every applied action row is the dispatch of "
+          f"of {n_steps} env steps in {rec['pipeline_groups']} group with {n_updates} updates {where}), "
+          f"{rec['updates']} updates; every applied action row is the dispatch of "
           f"{'the group-step before' if lag else 'its own step'} (bitwise); every cycle's {n_updates} updates "
           f"sampled the buffer before its push; metric vectors finite (mean critic loss "
           f"{rec['critic_loss_mean']:.4g}); kernel launches {launches}", flush=True)
-    print(f"[pipeline] (b) action_lag={lag}: {rec['env_steps_per_s']:.1f} env steps/s and {rec['updates_per_s']:.1f} "
-          f"updates/s over cycles 2-{PIPE_CYCLES} ({rec['ms_per_cycle']:.1f} ms per cycle); device busy "
+    print(f"[pipeline] (b) action_lag={lag}{', act-fused' if fused else ''}: {rec['env_steps_per_s']:.1f} env steps/s "
+          f"and {rec['updates_per_s']:.1f} "
+          f"updates/s over cycles 3-{PIPE_CYCLES} ({rec['ms_per_cycle']:.1f} ms per cycle); device busy "
           f"{busy_cycle:.2f} ms per cycle over {PIPE_PROFILED_CYCLES} profiled cycles, idle "
           f"{rec['device_idle_share']:.1%} of the unprofiled cycle on {card}", flush=True)
     del agent, replay, vecs
@@ -3100,15 +3167,269 @@ def phase_pipeline(pf, card: str) -> dict:
           flush=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_pipeline_", dir=osp.join(REPO, "build"))
     try:
-        for lag in (1, 0):
-            run = pipeline_run(pf, lag, osp.join(work, f"lag{lag}"), card)
-            rec["runs"][f"action_lag_{lag}"] = run
+        for lag, fused in ((1, False), (0, False), (1, True)):
+            run = pipeline_run(pf, lag, osp.join(work, f"lag{lag}_{fused}"), card, fused)
+            rec["runs"][f"action_lag_{lag}" + ("_act_fused" if fused else "")] = run
             for k in TPU_KERNELS:
                 rec["launches"][k] += run["launches"][k]
     finally:
         shutil.rmtree(work, ignore_errors=True)
     rec["s"] = time.monotonic() - t0
     print(f"[time] pipeline phase: {rec['s']:.1f} s", flush=True)
+    return rec
+
+
+GRAPH_FILL = 4096  # seeded full-width transitions in the replay before the graphs phase's updates
+GRAPH_PUSH = 2048  # pushed between the captures and the replays: the replay's size grows under the graphs
+GRAPH_SCANS = (16, 3, 16, 3)  # a round of scans: the interval-2 gates' phases 0, 0, 1, 1
+GRAPH_ROUNDS = 3  # round 0 runs each program eagerly, round 1 captures and replays, round 2 replays
+GRAPH_TIMED = 10  # timed calls of each program, eager and graphed, host clock and torch.profiler
+GRAPH_FUSED_CHUNK = 16  # act-fused chunk: the walker recipe's 16 updates per act of its 16 envs
+
+
+def train_state_mismatch(a, b) -> list:
+    """The parts of two agents' train states that differ bitwise:
+    parameters, target, alpha, every optimizer state tensor, the update
+    counter and the agent's generator."""
+    import torch
+
+    sa, sb = a.state_dict(), b.state_dict()
+    bad = [f"{part}.{k}" for part in ("model", "target") for k, v in sa[part].items()
+           if not torch.equal(v, sb[part][k])]
+    if not torch.equal(sa["log_alpha"], sb["log_alpha"]):
+        bad.append("log_alpha")
+    for opt in ("actor_opt", "critic_opt", "alpha_opt"):
+        for i, st in sa[opt]["state"].items():
+            bad += [f"{opt}[{i}].{k}" for k, v in st.items() if not torch.equal(v, sb[opt]["state"][i][k])]
+    if sa["updates"] != sb["updates"]:
+        bad.append(f"updates {sa['updates']} vs {sb['updates']}")
+    if not torch.equal(sa["generator"], sb["generator"]):
+        bad.append("generator")
+    return bad
+
+
+def graph_twins(agent_cfg: dict, info: dict):
+    """Two agents on the card in one state: one runs the update programs
+    (CUDA graphs), the other calls the eager step they capture."""
+    from pointcloud_rl_torch.algorithms import build_agent
+
+    graphed = build_agent(dict(agent_cfg, env_params=info, seed=0, device="cuda"))
+    eager = build_agent(dict(agent_cfg, env_params=info, seed=0, device="cuda"))
+    eager.load_state_dict(graphed.state_dict())
+    return graphed, eager
+
+
+def graph_check(name: str, what: str, graphed, eager, got, want, replay=None, after=None) -> None:
+    import torch
+
+    bad = train_state_mismatch(graphed, eager)
+    if not torch.equal(got, want):
+        bad.append(f"the summed metric vectors ({(got - want).abs().max().item():.3e} apart)")
+    if replay is not None and not torch.equal(replay.generator.get_state(), after):
+        bad.append("the replay's generator")
+    if bad:
+        fail(f"graphs {name}: {what}: the graphed update differs from the eager one bitwise in {bad[:6]}")
+
+
+def graph_timing(fn_eager, fn_graphed, n: int, acts) -> dict:
+    """Per update, eager vs graphed: host ms until the call returns, ms until
+    the card is done (host clock around ``synchronize``), device busy ms
+    (``torch.profiler``); medians of ``GRAPH_TIMED`` calls."""
+    import torch
+
+    out = {}
+    for label, fn in (("eager", fn_eager), ("graphed", fn_graphed)):
+        host, wall = [], []
+        for _ in range(GRAPH_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            host.append(t1 - t0)
+            wall.append(time.perf_counter() - t0)
+        _, busy = profiled(fn, acts)
+        out[f"{label}_host_ms_per_update"] = 1e3 * float(np.median(host)) / n
+        out[f"{label}_wall_ms_per_update"] = 1e3 * float(np.median(wall)) / n
+        out[f"{label}_device_ms_per_update"] = busy / n
+    out["graphed_idle_share"] = 1.0 - out["graphed_device_ms_per_update"] / out["graphed_wall_ms_per_update"]
+    out["eager_idle_share"] = 1.0 - out["eager_device_ms_per_update"] / out["eager_wall_ms_per_update"]
+    return out
+
+
+def program_stats(agent) -> dict:
+    stats = agent._programs.stats()
+    return {"programs": stats, "capture_ms": {k: v["capture_ms"] for k, v in stats.items()},
+            "pool_mb": sum(v["pool_bytes"] for v in stats.values()) / 2**20}
+
+
+def graphs_storage(pf, name: str, config: str, card: str, acts) -> dict:
+    """(1) / (2): scans over the recipe's packed ``DeviceReplayMemory``, at
+    both gate phases, graphed against eager from one state; the replay
+    grows between the captures and the replays."""
+    import torch
+
+    from pointcloud_rl_torch.env import build_replay
+
+    agent_cfg, info, cfg = walker_agent_cfg(config)
+    replay = build_replay(cfg["replay_cfg"], dict(seed=0), device="cuda")
+    replay.push_batch(walker_raw_block(GRAPH_FILL, seed=1))
+    graphed, eager = graph_twins(agent_cfg, info)
+    n_updates = cfg["train_cfg"]["n_updates"]
+    scans = tuple(n_updates if k == 16 else k for k in GRAPH_SCANS)
+    sizes = []
+    for rnd in range(GRAPH_ROUNDS):
+        for n in scans:
+            start = replay.generator.get_state()
+            got = graphed.update_parameters_scan(replay, n)
+            after = replay.generator.get_state()
+            replay.generator.set_state(start)
+            want = eager._update_vecs(replay, n)
+            graph_check(name, f"round {rnd}, a scan of {n} at update {eager.updates - n}", graphed, eager, got,
+                        want, replay, after)
+        sizes.append(len(replay))
+        if rnd == 1:
+            replay.push_batch(walker_raw_block(GRAPH_PUSH, seed=2))
+    print(f"[graphs] {name} ({config}, {type(graphed).__name__}): rounds of scans {scans} over the packed replay of "
+          f"{sizes} transitions (pushed after the captures): graphed == eager bitwise after every scan (parameters, "
+          f"target, the optimizers' state, log_alpha, the update counter, the generators, the summed metrics); "
+          f"{len(graphed._programs.programs)} programs", flush=True)
+    timing = graph_timing(lambda: eager._update_vecs(replay, n_updates),
+                          lambda: graphed.update_parameters_scan(replay, n_updates), n_updates, acts)
+    rec = {"config": config, "scans": list(scans), "rounds": GRAPH_ROUNDS, "replay_sizes": sizes,
+           "updates": graphed.updates, **timing, **program_stats(graphed)}
+    print(f"[graphs] {name}: per update, eager {timing['eager_host_ms_per_update']:.2f} host ms "
+          f"({timing['eager_wall_ms_per_update']:.2f} ms to done, device {timing['eager_device_ms_per_update']:.2f}, "
+          f"idle {timing['eager_idle_share']:.1%}) vs graphed {timing['graphed_host_ms_per_update']:.3f} host ms "
+          f"({timing['graphed_wall_ms_per_update']:.2f} ms to done, device "
+          f"{timing['graphed_device_ms_per_update']:.2f}, idle {timing['graphed_idle_share']:.1%}); captures "
+          f"{ {k: round(v, 1) for k, v in rec['capture_ms'].items()} } ms, pool {rec['pool_mb']:.1f} MB on {card}",
+          flush=True)
+    return rec, graphed, eager, replay
+
+
+def graphs_act_fused(pf, graphed, eager, replay, card: str, acts) -> dict:
+    """The walker agent's act-fused forwards (16 updates, then the explore
+    act on 16 envs) against 16 eager updates then the eager act; then one
+    replay of the scan program under ``torch.profiler``: the body kernels
+    in its trace against the launches it adds to ``launch_counts``."""
+    import torch
+
+    # the timed calls drew other replay rows for each; a host copy, so that
+    # the twins' optimizer states share no tensor
+    eager.load_state_dict(train_state_on_host(graphed))
+    obs = walker_raw_block(WALKER["envs"], seed=3)["obs"]
+    chunk = GRAPH_FUSED_CHUNK
+    if not graphed.set_fused_updates(replay, chunk, 4 * chunk):
+        fail("graphs: set_fused_updates refused the walker's device replay")
+    for step in range(4):  # eager, capture + replay, replay, replay
+        start = replay.generator.get_state()
+        got = graphed.forward(obs, mode="explore")
+        after = replay.generator.get_state()
+        replay.generator.set_state(start)
+        vec = eager._update_vecs(replay, chunk)
+        with torch.no_grad():
+            want = eager.act(eager._upload_obs(obs), "explore").cpu().numpy()
+        if not np.array_equal(got, want):
+            fail(f"graphs act_fused: forward {step}: the fused actions differ from the eager ones bitwise "
+                 f"(max {np.abs(got - want).max():.3e})")
+        graph_check("act_fused", f"forward {step}", graphed, eager, vec, vec, replay, after)
+    vec, done = graphed.finish_fused_updates()
+    if done != 4 * chunk or not bool(torch.isfinite(vec).all()):
+        fail(f"graphs act_fused: {done} updates, metrics finite {bool(torch.isfinite(vec).all())}")
+    print(f"[graphs] act_fused: 4 explore forwards of {WALKER['envs']} envs, each {chunk} updates then the act in one "
+          f"program: actions and train state bitwise the eager {chunk} updates then act", flush=True)
+
+    # the launches inside one replay: the profiler's kernels against launch_counts
+    graphed.update_parameters_scan(replay, chunk)  # phase 0 again
+    torch.cuda.synchronize()
+    before = dict(pf.launch_counts)
+    with torch.profiler.profile(activities=[acts.CPU, acts.CUDA]) as prof:
+        graphed.update_parameters_scan(replay, chunk)
+        torch.cuda.synchronize()
+    added = {k: pf.launch_counts[k] - before[k] for k in before}
+    with tempfile.TemporaryDirectory(dir=osp.join(REPO, "build")) as tmp:
+        prof.export_chrome_trace(osp.join(tmp, "trace.json"))
+        with open(osp.join(tmp, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    traced = {k: 0 for k in before}
+    for evt in events:
+        for kname, body in (("pointnet_fused_fwd_idx", "pointnet_body_idx_kernel"),
+                            ("pointnet_fused_fwd_max", "pointnet_body_max_kernel")):
+            if evt.get("cat") == "kernel" and body in evt.get("name", ""):
+                traced[kname] += 1
+    if traced != added or not all(added.values()):
+        fail(f"graphs: one replay of the {chunk}-update program traced the body kernels {traced} times, "
+             f"launch_counts added {added}")
+    print(f"[graphs] one replay of the {chunk}-update program: torch.profiler traced the body kernels {traced} times, "
+          f"launch_counts added {added} on {card}", flush=True)
+    return {"chunk": chunk, "forwards": 4, "replay_kernels_traced": traced, "launch_counts_added": added}
+
+
+def graphs_host_batch(pf, card: str, acts) -> dict:
+    """(3): the SAC slice (f32, 256 x 1200 x 8) on host batches: the
+    one-update program, each batch copied into its static inputs, against
+    the eager update on the same batch, at both gate phases."""
+    agent_cfg, info, _ = resolved_agent_cfg(SLICE_CONFIG, [FUSED])
+    graphed, eager = graph_twins(agent_cfg, info)
+    rs = np.random.RandomState(4)
+    B = graphed.batch_size
+
+    def obs():
+        out = {}
+        for k, shape in info["obs_shape"].items():
+            shape = (B,) + ((shape,) if isinstance(shape, int) else tuple(shape))
+            out[k] = (rs.randint(0, 256, shape).astype(np.uint8) if k == "rgb"
+                      else rs.uniform(-1, 1, shape).astype(np.float32))
+        return out
+
+    def batch():
+        return dict(obs=obs(), next_obs=obs(), actions=rs.uniform(-1, 1, (B, info["action_shape"])).astype(np.float32),
+                    rewards=rs.uniform(0, 1, (B, 1)).astype(np.float32), dones=rs.rand(B, 1) < 0.05)
+
+    batches = [batch() for _ in range(2)]
+    for u in range(8):  # phases 0, 1 eager; then captures; then replays
+        b = batches[u % 2]
+        got = graphed.update_parameters_lazy(_Batch(b), u)
+        want = eager._batch_update_vec(eager._prepare_batch(dict(b)))
+        graph_check("host_batch", f"update {u}", graphed, eager, got, want)
+    print(f"[graphs] host_batch ({SLICE_CONFIG}, f32, {B} x 1200 x 8): 8 one-update programs on host batches copied "
+          f"into the graph's static inputs, graphed == eager bitwise after each", flush=True)
+    timing = graph_timing(lambda: eager._batch_update_vec(eager._prepare_batch(dict(batches[0]))),
+                          lambda: graphed.update_parameters_lazy(_Batch(batches[0]), 0), 1, acts)
+    rec = {"config": SLICE_CONFIG, "updates": graphed.updates, **timing, **program_stats(graphed)}
+    print(f"[graphs] host_batch: per update (the batch's upload included), eager "
+          f"{timing['eager_host_ms_per_update']:.2f} host ms ({timing['eager_wall_ms_per_update']:.2f} to done, device "
+          f"{timing['eager_device_ms_per_update']:.2f}) vs graphed {timing['graphed_host_ms_per_update']:.2f} host ms "
+          f"({timing['graphed_wall_ms_per_update']:.2f} to done, device {timing['graphed_device_ms_per_update']:.2f}); "
+          f"captures { {k: round(v, 1) for k, v in rec['capture_ms'].items()} } ms, pool {rec['pool_mb']:.1f} MB "
+          f"on {card}", flush=True)
+    return rec
+
+
+def phase_graphs(pf, card: str) -> dict:
+    """The update programs as CUDA graphs against the eager step they
+    capture, on the card, bitwise: (1) the walker recipe's scans, (2) the
+    DrQ walker recipe's, (3) the SAC slice's one-update program on host
+    batches, the walker's act-fused forwards, and the kernels inside one
+    replay; host and device ms per update, capture ms, the pool's memory."""
+    import torch
+
+    t0 = time.monotonic()
+    acts = torch.profiler.ProfilerActivity
+    rec: dict = {}
+    pf.reset_launch_counts()
+    rec["walker"], graphed, eager, replay = graphs_storage(pf, "walker", WALKER_CONFIG, card, acts)
+    rec["act_fused"] = graphs_act_fused(pf, graphed, eager, replay, card, acts)
+    del graphed, eager, replay
+    torch.cuda.empty_cache()
+    rec["drq_walker"], graphed, eager, replay = graphs_storage(pf, "drq_walker", PIPELINE_CONFIG, card, acts)
+    del graphed, eager, replay
+    torch.cuda.empty_cache()
+    rec["host_batch"] = graphs_host_batch(pf, card, acts)
+    rec["launches"] = dict(pf.launch_counts)
+    rec["s"] = time.monotonic() - t0
+    print(f"[time] graphs phase: {rec['s']:.1f} s", flush=True)
     return rec
 
 
@@ -3130,8 +3451,8 @@ def main() -> int:
             worker(argv[at + 1], argv[at + 2])
             return 0
     kernels_only = "--kernels-only" in argv
-    # --only PHASE[,PHASE]: runs, encoders, modules, dmc, dp, hosts, hosts-nccl, replay-io, maniskill,
-    # pipeline (the kernel phase always runs)
+    # --only PHASE[,PHASE]: graphs, runs, encoders, modules, dmc, dp, hosts, hosts-nccl, replay-io,
+    # maniskill, pipeline (the kernel phase always runs)
     only = set(argv[argv.index("--only") + 1].split(",")) if "--only" in argv else None
 
     def wanted(phase: str) -> bool:
@@ -3156,21 +3477,38 @@ def main() -> int:
     print(f"[time] build and kernel phases: {time.monotonic() - t0:.1f} s", flush=True)
 
     by_run: dict = {}
+    if wanted("graphs"):
+        graphs = phase_graphs(pf, card)
+        by_run["graphs"] = graphs["launches"]
+        print(json.dumps({"graphs": graphs}), flush=True)
+        print(f"[time] through the graphs phase: {time.monotonic() - t0:.1f} s", flush=True)
     if wanted("runs"):
         work = tempfile.mkdtemp(prefix="chip_smoke_", dir=osp.join(REPO, "build"))
         summaries = {}
+
+        def one_run(name, config, opts, prefix, pointnet, total, profile=0):
+            t_run = time.monotonic()
+            summary = phase_train(work, name, config, opts, prefix, pointnet, total, profile)
+            replay = summary["replay"]
+            if name == "drq_device" and not (replay["type"] == "DeviceReplayMemory"
+                                             and replay["device"].startswith("cuda")
+                                             and replay["storage_bytes"] > 0):
+                fail(f"drq_device: the replay is {replay}, not a DeviceReplayMemory on cuda")
+            phase_reference(name, config, opts, summary["models_dir"],
+                            ACTION_ATOL_BF16 if "agent_cfg.bf16=True" in opts else ACTION_ATOL, total)
+            print(f"[time] run {name}: {time.monotonic() - t_run:.1f} s", flush=True)
+            return summary
+
         try:
-            for name, config, opts, prefix, pointnet, total in RUNS:
-                t_run = time.monotonic()
-                summaries[name] = summary = phase_train(work, name, config, opts, prefix, pointnet, total)
-                replay = summary["replay"]
-                if name == "drq_device" and not (replay["type"] == "DeviceReplayMemory"
-                                                 and replay["device"].startswith("cuda")
-                                                 and replay["storage_bytes"] > 0):
-                    fail(f"drq_device: the replay is {replay}, not a DeviceReplayMemory on cuda")
-                phase_reference(name, config, opts, summary["models_dir"],
-                                ACTION_ATOL_BF16 if "agent_cfg.bf16=True" in opts else ACTION_ATOL, total)
-                print(f"[time] run {name}: {time.monotonic() - t_run:.1f} s", flush=True)
+            # the SAC slice alone, its first env steps traced; then the others
+            # RUNS_AT_ONCE at a time: their process starts, warm-ups and
+            # evaluations are most of the phase; a failure in one (fail's
+            # SystemExit) is raised here by result()
+            summaries[RUNS[0][0]] = one_run(*RUNS[0], profile=RUNS_PROFILE_STEPS)
+            with concurrent.futures.ThreadPoolExecutor(RUNS_AT_ONCE) as pool:
+                futures = {run[0]: pool.submit(one_run, *run) for run in RUNS[1:]}
+                for name, future in futures.items():
+                    summaries[name] = future.result()
         finally:
             keep = osp.join(REPO, "build", "chip_smoke_logs")
             shutil.rmtree(keep, ignore_errors=True)
@@ -3178,9 +3516,15 @@ def main() -> int:
             shutil.rmtree(work, ignore_errors=True)
         for name, summary in summaries.items():
             by_run[name] = summary["launches"]
+            idle = (f"; device busy {summary['device_busy_ms_per_env_step']:.2f} ms per env step over the first "
+                    f"{RUNS_PROFILE_STEPS} (traced), idle {summary['device_idle_share']:.1%} of the main loop, alone"
+                    if "device_idle_share" in summary else f", {RUNS_AT_ONCE} runs at a time")
             print(f"[{name}] {summary['env_steps_per_s']:.1f} env steps/s, "
                   f"{summary['updates_per_s']:.1f} updates/s over the main loop "
-                  f"({summary['main_loop_s']:.1f} s) on {card}", flush=True)
+                  f"({summary['main_loop_s']:.1f} s){idle} on {card}", flush=True)
+        print(json.dumps({"runs": {name: {k: summary.get(k) for k in (
+            "env_steps_per_s", "updates_per_s", "main_loop_s", "launches", "device_busy_ms_per_env_step",
+            "device_idle_share")} for name, summary in summaries.items()}}), flush=True)
         print(f"[time] through the training runs: {time.monotonic() - t0:.1f} s", flush=True)
     if wanted("encoders"):
         phase_encoders(card)

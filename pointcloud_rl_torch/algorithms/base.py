@@ -101,6 +101,7 @@ class BaseAgent:
         self.data_parallel = DataParallel()  # a world of one; parallel.setup_data_parallel makes it a rank
         self._rnn_states = None  # a recurrent agent's per-env state [B, L, H], threaded through act
         self.obs_transfer = None  # ObsTransferSpec (init_obs_transfer)
+        self._fused_plan = None  # armed act-fused updates (SAC.set_fused_updates)
 
     def init_obs_transfer(self, cfg, obs_shape) -> None:
         """Arm ``obs_transfer_cfg`` (``algorithms/obs_transfer.py``) for the
@@ -131,7 +132,12 @@ class BaseAgent:
         return obs
 
     def _upload_obs(self, obs):
-        """The act's host -> device step.  With a transfer spec, a point-cloud
+        """The act's host -> device step: ``_host_obs``, the upload, then the
+        completion on the device (``_device_obs``)."""
+        return self._device_obs(to_torch(self._host_obs(obs), self.device))
+
+    def _host_obs(self, obs):
+        """The act's obs as they go up.  With a transfer spec, a point-cloud
         obs goes up as the spec asks: ``"dict"`` sends the model's leaves
         (xyz in ``pack_dtype``, rgb uint8) less the dropped block,
         ``"packed"`` one array from ``pack_pointcloud_obs``; on the device
@@ -148,7 +154,7 @@ class BaseAgent:
             else:
                 packed, state = pack_pointcloud_obs(obs, spec=spec)
                 obs = packed if state is None else {"state": state, "packed": packed}
-        return self._device_obs(to_torch(obs, self.device))
+        return obs
 
     def train(self):
         for m in self.modules.values():
@@ -170,8 +176,18 @@ class BaseAgent:
         which has read them when it returns; on a card the act runs on the
         current stream and its actions are copied into pinned host memory
         without blocking.  ``np.asarray`` on the returned handle waits for
-        them, so the pipelined rollout can step other envs meanwhile."""
-        actions = self.act(self._upload_obs(obs), mode)
+        them, so the pipelined rollout can step other envs meanwhile.
+
+        With act-fused updates armed (``SAC.set_fused_updates``), an explore
+        act of a feed-forward agent takes the plan's chunk of updates first,
+        in the same program (``_fused_act_dispatch``)."""
+        obs = self._host_obs(obs)
+        actions = None
+        model = getattr(self, "model", None)
+        if mode == "explore" and self._fused_plan is not None and not (model is not None and model.is_recurrent):
+            actions = self._fused_act_dispatch(obs)
+        if actions is None:
+            actions = self.act(self._device_obs(to_torch(obs, self.device)), mode)
         if actions.device.type == "cpu":
             return ActionHandle(actions.numpy())
         host = torch.empty(actions.shape, dtype=actions.dtype, pin_memory=True)

@@ -81,4 +81,4 @@ class DDPG(SAC):
         actor_loss = -model.critic_apply(obs, actions=pi, visual_feature=vf)[..., 0].mean()
         grads = self._step(actor_loss, self._actor_named, self.actor_tx, norm_keys={"actor"})
         zero = torch.zeros((), device=self.device)
-        return actor_loss, zero, zero, global_grad_norm(grads), zero
+        return actor_loss, zero, zero, global_grad_norm(grads, self.device), zero

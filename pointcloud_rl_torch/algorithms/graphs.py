@@ -1,0 +1,168 @@
+"""The agent's update programs as captured CUDA graphs.
+
+Port of the JAX package's compiled update programs
+(``pointcloud_rl_tpu/algorithms/sac.py``: ``_update_jit``,
+``_build_storage_update``, ``_build_storage_update_scan``,
+``_build_act_update_scan``).  Where the JAX package jits a program, the
+port captures a CUDA graph of its eager step and replays it: one launch
+for a whole update, or for a cycle's updates, in place of the several
+hundred kernel launches the eager step dispatches from the host.
+
+A program is one of three kinds:
+
+- ``"storage"``: ``n`` updates, each sampling a ``DeviceReplayMemory`` on
+  the device (against its ``device_size``) and stepping;
+- ``"batch"``: one update on a host batch, which is copied into the
+  program's static input tensors before each replay;
+- ``"act"``: ``n`` storage updates, then the explore act on observations
+  copied into the program's static inputs.
+
+The actor and target gates (``updates % interval``) are host branches of
+the eager step, so a program is captured for each gate phase
+(``updates % lcm(actor_update_interval, target_update_interval)``) at
+which it runs.  The first call of a program runs its body eagerly, on the
+capture stream: that creates the optimizers' state and whatever the body
+makes once per device, so that nothing is uploaded from the host inside a
+capture; the second call captures it (nothing runs) and replays it; later
+calls replay.  A capture does not execute, but its Python runs: the
+agent's update counter and metric keys are put back after it, and the
+fused PointNet kernel's launch counts captured in it are taken back and
+added again on every replay, which is where those kernels launch.  Every
+generator the body draws from (the agent's, its act generator, the
+replay's) is registered with the graph, so a replay draws what the eager
+step would and advances the generators as it would.  Returned tensors
+are copies the caller owns: the next replay overwrites the outputs.
+
+A failed capture raises; nothing falls back to the eager step.  The
+programs are dropped (``invalidate``) when the tensors they read are
+replaced: the agent's ``load_state_dict`` and ``load_params``, and a move
+of the replay's storage (``storage_version``).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..ops import pointnet_fused
+from ..utils.tree_ops import tree_map
+
+
+def input_signature(tree) -> Tuple:
+    """The (path, shape, dtype) of every leaf of a host or device tree."""
+    if tree is None:
+        return ()
+    if isinstance(tree, dict):
+        return tuple((k, input_signature(v)) for k, v in sorted(tree.items()))
+    return (tuple(tree.shape), str(tree.dtype))
+
+
+def _as_tensor(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+
+
+class _Program:
+    def __init__(self, graph, inputs, outputs, launches: Dict[str, int], capture_ms: float, pool_bytes: int):
+        self.graph, self.inputs, self.outputs = graph, inputs, outputs
+        self.launches, self.capture_ms, self.pool_bytes = launches, capture_ms, pool_bytes
+        self.replays = 0
+
+
+class UpdatePrograms:
+    """The captured programs of one agent on one card, in one memory pool.
+
+    ``run(key, n, body, inputs, generators, memory)``: ``body(inputs)``
+    takes ``n`` updates of the agent (and may act) and returns a tuple of
+    output tensors; ``inputs`` is a host or device tree (or None) that is
+    copied into the program's static inputs; ``memory`` is the
+    ``DeviceReplayMemory`` the body samples, if any."""
+
+    def __init__(self, agent, device: torch.device):
+        self.agent = agent
+        self.device = device
+        self.programs: Dict[Tuple, _Program] = {}
+        self.seen = set()  # keys whose body has run eagerly once
+        self.stream: Optional[torch.cuda.Stream] = None
+        self.pool = None
+        self.memory = None  # the replay the storage programs read, and its storage version
+        self.version = None
+
+    def invalidate(self) -> None:
+        """Drop every program (their graphs and memory)."""
+        self.programs.clear()
+        self.seen.clear()
+        self.pool = None
+        self.memory = self.version = None
+
+    def stats(self) -> Dict[str, Any]:
+        """Per program: capture ms, replays, kernels it adds to the launch
+        counts, bytes its capture added to the pool."""
+        return {repr(k): {"capture_ms": p.capture_ms, "replays": p.replays, "launches": p.launches,
+                          "pool_bytes": p.pool_bytes} for k, p in self.programs.items()}
+
+    def _to_device(self, tree):
+        return None if tree is None else tree_map(lambda x: _as_tensor(x).to(self.device), tree)
+
+    def run(self, key: Tuple, n: int, body: Callable, inputs=None, generators: Sequence = (),
+            memory=None) -> Tuple[torch.Tensor, ...]:
+        if memory is not None and (memory is not self.memory or memory.storage_version != self.version):
+            if self.memory is not None:
+                self.invalidate()
+            self.memory, self.version = memory, memory.storage_version
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(self.device)
+        current = torch.cuda.current_stream(self.device)
+        if key not in self.seen:  # the eager first run, on the capture stream
+            self.stream.wait_stream(current)
+            with torch.cuda.stream(self.stream):
+                out = body(self._to_device(inputs))
+            current.wait_stream(self.stream)
+            self.seen.add(key)
+            return out
+        prog = self.programs.get(key)
+        if prog is None:
+            prog = self.programs[key] = self._capture(key, body, inputs, generators)
+        if inputs is not None:
+            tree_map(lambda dst, src: dst.copy_(_as_tensor(src)), prog.inputs, inputs)
+        prog.graph.replay()
+        prog.replays += 1
+        self.agent.updates += n
+        for name, count in prog.launches.items():
+            pointnet_fused.launch_counts[name] += count
+        return tuple(o.clone() for o in prog.outputs)
+
+    def _capture(self, key: Tuple, body: Callable, inputs, generators: Sequence) -> _Program:
+        agent = self.agent
+        statics = None if inputs is None else tree_map(
+            lambda x: torch.empty(tuple(x.shape), dtype=_as_tensor(x).dtype, device=self.device), inputs)
+        graph = torch.cuda.CUDAGraph()
+        registered = set()
+        for gen in generators:
+            if gen is not None and gen.device.type == "cuda" and id(gen) not in registered:
+                graph.register_generator_state(gen)
+                registered.add(id(gen))
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        updates, metric_keys = agent.updates, agent._metric_keys
+        counts = dict(pointnet_fused.launch_counts)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()  # as the capture does first: the pool's growth is what it reserves anew
+        reserved = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                outputs = body(statics)
+        except Exception as err:
+            raise RuntimeError(f"capturing the update program {key} as a CUDA graph failed: {err}") from err
+        finally:
+            captured = {k: v - counts[k] for k, v in pointnet_fused.launch_counts.items()}
+            pointnet_fused.launch_counts.update(counts)
+            agent.updates, agent._metric_keys = updates, metric_keys
+        torch.cuda.synchronize(self.device)
+        capture_ms = 1e3 * (time.perf_counter() - t0)
+        pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        return _Program(graph, statics, outputs, {k: v for k, v in captured.items() if v},
+                        capture_ms, pool_bytes)

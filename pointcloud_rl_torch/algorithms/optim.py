@@ -2,7 +2,12 @@
 
 Port of ``pointcloud_rl_tpu/algorithms/optim.py`` (Adam, AdamW, SGD,
 RMSprop, each stepping as its optax counterpart; ``max_grad_norm``
-clipping).  ``optim_cfg`` dicts like
+clipping).  On CUDA parameters Adam and AdamW are ``capturable``: their
+step count lives on the device, so the eager step and the step inside a
+captured CUDA graph (``algorithms/graphs.py``) do the same arithmetic; CPU
+parameters keep the default, which the JAX comparisons hold.  Every
+optimizer updates its state in place, as a graph replay needs.
+``optim_cfg`` dicts like
 ``dict(type="Adam", lr=1e-3, betas=(0.5, 0.999), param_cfg={"(.*?)visual_nn(.*?)":
 None})``: a ``None`` value EXCLUDES the matching parameters, which then get
 no update and no Adam state.  Regexes match the same slash-joined paths as
@@ -49,12 +54,13 @@ class OptaxRMSprop(torch.optim.Optimizer):
                     state["nu"] = torch.zeros_like(p)
                     if momentum:
                         state["trace"] = torch.zeros_like(p)
-                g = p.grad
-                state["nu"] = (1 - decay) * g.square() + decay * state["nu"]
-                u = g * torch.rsqrt(state["nu"] + eps)
+                g, nu = p.grad, state["nu"]
+                nu.copy_((1 - decay) * g.square() + decay * nu)
+                u = g * torch.rsqrt(nu + eps)
                 if momentum:
-                    state["trace"] = u + momentum * state["trace"]
-                    u = state["trace"]
+                    trace = state["trace"]
+                    trace.copy_(u + momentum * trace)
+                    u = trace
                 p.add_(u * -group["lr"])
 
 
@@ -65,10 +71,16 @@ def _torch_optimizer(kind: str, params: List[torch.Tensor], lr: float, betas, ep
     the pre-step parameter, as ``torch.optim.AdamW`` does."""
     kind = kind.lower()
     if kind in ("adam", "adamw"):
+        capturable = params[0].is_cuda
         if kind == "adamw" or weight_decay:
-            return torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps, weight_decay=weight_decay)
-        # torch Adam's step is optax.adam's: lr * m_hat / (sqrt(v_hat) + eps)
-        return torch.optim.Adam(params, lr=lr, betas=betas, eps=eps)
+            opt = torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps, weight_decay=weight_decay,
+                                    capturable=capturable)
+        else:  # torch Adam's step is optax.adam's: lr * m_hat / (sqrt(v_hat) + eps)
+            opt = torch.optim.Adam(params, lr=lr, betas=betas, eps=eps, capturable=capturable)
+        # torch warns when a capturable step runs eagerly; here that is the
+        # point: the eager step does the arithmetic of the graphed one
+        opt._warned_capturable_if_run_uncaptured = True
+        return opt
     if kind == "sgd":
         # optax.trace starts at 0, so its first step is g, as torch's buffer
         return torch.optim.SGD(params, lr=lr, momentum=cfg.pop("momentum", 0.0),
@@ -145,8 +157,14 @@ class Optimizer:
         return self.opt.state_dict() if self.opt is not None else {}
 
     def load_state_dict(self, state) -> None:
+        """Load ``state_dict()``'s output.  The optimizer keeps its own
+        ``capturable`` flag: torch would take the saved one, so a state saved
+        on the CPU would turn it off on the card (and the update programs'
+        capture would fail); with the flag the step count goes to the card."""
         if self.opt is not None:
-            self.opt.load_state_dict(state)
+            groups = [dict(saved, **{k: own[k] for k in ("capturable",) if k in own})
+                      for saved, own in zip(state["param_groups"], self.opt.param_groups)]
+            self.opt.load_state_dict(dict(state, param_groups=groups))
 
 
 def build_tau_tree(update_coeff: Union[float, Dict[str, float]], names: Iterable[str]) -> Dict[str, float]:
@@ -177,10 +195,12 @@ def soft_update(target: torch.nn.Module, live: torch.nn.Module, taus: Dict[str, 
         t.mul_(1.0 - tau).add_(live_params[name], alpha=tau)
 
 
-def global_grad_norm(grads: Iterable[Optional[torch.Tensor]]) -> torch.Tensor:
+def global_grad_norm(grads: Iterable[Optional[torch.Tensor]], device=None) -> torch.Tensor:
+    """The L2 norm over all ``grads`` (None entries skipped), f32; zero on
+    ``device`` when there is none."""
     grads = [g for g in grads if g is not None]
     if not grads:
-        return torch.zeros(())
+        return torch.zeros((), device=device)
     return torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
 
 

@@ -30,10 +30,22 @@ obs lack the constant pos_encoding block gets it back on the device in
 update, and a subclass's ``inference_aug`` on the obs of ``act``; both draw
 from the agent's generator, on its device.  A batch may come from a host
 replay (numpy) or a device replay (tensors already on the device).
+
+The update programs are the JAX package's: ``update_parameters_lazy``
+(one update, its metric vector left on the device), ``update_parameters_scan``
+(``n`` updates sampling a ``DeviceReplayMemory`` on the device, their
+metric vectors summed; a host replay, a recurrent model or ``obs_rms`` take
+``n`` lazy updates), ``update_parameters`` (a lazy update whose metrics are
+fetched) and the act-fused updates (``set_fused_updates``: each explore
+``forward_async`` of the next collection takes a chunk of updates, then
+acts, in one program).  On a card outside a process group each program is
+a captured CUDA graph of the eager step (``algorithms/graphs.py``); on the
+CPU, and on a rank of a process group, the eager step runs.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -46,6 +58,7 @@ from ..utils.stats import RunningMeanStd
 from ..utils.tree_ops import tree_map
 from . import MFRL
 from .base import BaseAgent, to_torch
+from .graphs import UpdatePrograms, input_signature
 from .optim import Optimizer, build_tau_tree, global_grad_norm, grads_of, soft_update
 
 _ACTOR_KEYS = ("actor_loss", "alpha_loss", "entropy", "actor_grad", "q_match_rate")
@@ -152,6 +165,11 @@ class SAC(BaseAgent):
             self.target_entropy = -float(np.prod(action_shape))
         self.log_alpha = torch.nn.Parameter(torch.tensor(init_log_alpha, device=self.device))
         self.updates = 0  # gradient steps taken: gates the actor and target updates
+        # the gates repeat with this period: a captured program is one per phase of it
+        self._gate_period = math.lcm(self.actor_update_interval, self.target_update_interval)
+        self._metric_keys: Optional[List[str]] = None
+        self._programs: Optional[UpdatePrograms] = None  # the captured update programs (on a card)
+        self._fused_vec_sum = None
 
         # Each optimizer owns the subtrees of the JAX package's masks (the
         # shared rnn goes with the shared backbone), minus param_cfg
@@ -188,7 +206,10 @@ class SAC(BaseAgent):
         return out
 
     # -------------------------------------------------------------- update
-    def _prepare_batch(self, sampled: Dict) -> Dict:
+    def _host_batch(self, sampled: Dict) -> Dict:
+        """The batch's preparation before it goes to the device: episode
+        dones, ``obs_rms`` (host batches only), ``[B, 1]`` rewards and
+        dones, the keys the update reads."""
         batch = dict(sampled)
         if self.use_episode_dones:
             batch["dones"] = batch["episode_dones"]
@@ -202,13 +223,20 @@ class SAC(BaseAgent):
             if batch[key].ndim == 1:  # numpy or tensor alike
                 batch[key] = batch[key][:, None]
         keep = ("obs", "next_obs", "actions", "rewards", "dones", "is_valid")
-        batch = to_torch({k: batch[k] for k in keep if k in batch}, self.device)
-        # re-attach a pos_encoding block the replay did not store, before
-        # any augmentation, so the channel order xyz, rgb, pos_encoding, seg holds
+        return {k: batch[k] for k in keep if k in batch}
+
+    def _complete_batch(self, batch: Dict) -> Dict:
+        """Re-attach a pos_encoding block the replay did not store, on the
+        device, before any augmentation, so the channel order xyz, rgb,
+        pos_encoding, seg holds."""
+        batch = dict(batch)
         for key in ("obs", "next_obs"):
             if isinstance(batch.get(key), dict):
                 batch[key] = self._device_obs(batch[key])
         return batch
+
+    def _prepare_batch(self, sampled: Dict) -> Dict:
+        return self._complete_batch(to_torch(self._host_batch(sampled), self.device))
 
     def set_data_parallel(self, dp) -> None:
         """Make this agent a rank of ``dp`` (``parallel.setup_data_parallel``):
@@ -220,13 +248,57 @@ class SAC(BaseAgent):
         for tx in (self.critic_tx, self.actor_tx, self.alpha_tx):
             tx.data_parallel = dp
         self.act_generator = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        self._drop_programs()
+
+    # --------------------------------------------------- update programs
+    def _graphed(self) -> bool:
+        """Whether the update programs are captured CUDA graphs: on a card,
+        outside a process group (a gloo collective cannot be captured, and
+        NCCL's capture is not ported)."""
+        return self.device.type == "cuda" and not self.data_parallel.distributed
+
+    def _drop_programs(self) -> None:
+        if self._programs is not None:
+            self._programs.invalidate()
+
+    def _program(self, kind: str, n: int, body, inputs=None, memory=None):
+        """``body(inputs)``, which takes ``n`` updates (and may act), as the
+        program ``kind`` (``algorithms/graphs.py``): a replay of its CUDA
+        graph on a card, the eager body elsewhere.  Returns its outputs."""
+        if not self._graphed():
+            return body(None if inputs is None else to_torch(inputs, self.device))
+        if self._programs is None:
+            self._programs = UpdatePrograms(self, self.device)
+        key = (kind, n, self.updates % self._gate_period, input_signature(inputs), self.model.training)
+        generators = (self.generator, self.act_generator, getattr(memory, "generator", None))
+        return self._programs.run(key, n, body, inputs, generators, memory)
+
+    def _samples_on_device(self, memory) -> bool:
+        """The JAX package's rule for the storage programs: a
+        ``DeviceReplayMemory``, a feed-forward model, no ``obs_rms``."""
+        from ..env.device_replay import DeviceReplayMemory
+
+        return isinstance(memory, DeviceReplayMemory) and not self.model.is_recurrent and self.obs_rms is None
+
+    def update_parameters_lazy(self, memory, updates: int) -> torch.Tensor:
+        """One gradient step (``updates`` is unused: the agent counts its
+        own); returns its metric vector on the device, in the order of
+        ``_metric_keys``, without waiting for it.  A device replay is
+        sampled inside the program; a host batch (a recurrent model's
+        windows, ``obs_rms`` applied) is sampled here and copied into it."""
+        if self._samples_on_device(memory):
+            return self._program("storage", 1, lambda _: (self._update_vec(memory),), memory=memory)[0]
+        batch = self._host_batch(self._sample(memory))
+        return self._program("batch", 1, lambda b: (self._batch_update_vec(self._complete_batch(b)),),
+                             inputs=batch)[0]
 
     def update_parameters(self, memory, updates: int) -> Dict[str, float]:
         """One gradient step on a batch sampled from ``memory`` (a host or a
-        device replay; a recurrent model samples ``[B, H]`` windows).  A
-        data-parallel rank samples and prepares the global batch, updates on
-        its rows and averages the metrics over the ranks."""
-        vec = self._update_vec(memory)
+        device replay; a recurrent model samples ``[B, H]`` windows), with
+        its metrics fetched.  A data-parallel rank samples and prepares the
+        global batch, updates on its rows and averages the metrics over the
+        ranks."""
+        vec = self.update_parameters_lazy(memory, updates)
         out = dict(zip(self._metric_keys, vec.cpu().tolist()))
         p = self.metric_prefix
         if out.pop(f"{p}/actor_updated") < 0.5:
@@ -239,16 +311,19 @@ class SAC(BaseAgent):
         return out
 
     def update_parameters_scan(self, memory, n: int) -> torch.Tensor:
-        """``n`` gradient steps as ``update_parameters`` takes them, each on
-        its own sample of ``memory``; returns the SUM of their metric
-        vectors on the device, without waiting for it (the counterpart of
-        the JAX package's scanned program).  ``reduce_metric_vecs`` turns
-        sums into the logged averages."""
-        total = None
-        for _ in range(n):
-            vec = self._update_vec(memory)
-            total = vec if total is None else total + vec
-        return total
+        """``n`` gradient steps, each on its own sample of ``memory``;
+        returns the SUM of their metric vectors on the device, without
+        waiting for it (the JAX package's scanned program).  Over a
+        ``DeviceReplayMemory`` they are one program; otherwise ``n`` lazy
+        updates.  ``reduce_metric_vecs`` turns sums into the logged
+        averages."""
+        if not self._samples_on_device(memory):
+            total = None
+            for i in range(n):
+                vec = self.update_parameters_lazy(memory, i)
+                total = vec if total is None else total + vec
+            return total
+        return self._program("storage", n, lambda _: (self._update_vecs(memory, n),), memory=memory)[0]
 
     def reduce_metric_vecs(self, vec_sum: torch.Tensor, count: int) -> Dict[str, float]:
         """Average summed metric vectors (one device fetch); the actor's
@@ -264,19 +339,75 @@ class SAC(BaseAgent):
         metrics[f"{p}/grad_steps"] = count
         return metrics
 
-    def _update_vec(self, memory) -> torch.Tensor:
-        """One gradient step: its metrics as one vector on the device, in
-        the order of ``_metric_keys``."""
+    # ------------------------------------------------ act-fused updates
+    def set_fused_updates(self, memory, chunk: int, budget: int) -> bool:
+        """Arm act-fused updates for the next collection: each explore
+        ``forward_async`` takes ``chunk`` gradient steps, then acts with the
+        stepped parameters, in one program, until ``budget`` updates have
+        run.  Returns False (not armed) where the storage programs do not
+        apply (a host replay, a recurrent model, ``obs_rms``) or the replay
+        is empty."""
+        if not (self._samples_on_device(memory) and len(memory) > 0 and chunk >= 1):
+            return False
+        self._fused_plan = {"mem": memory, "chunk": int(chunk), "budget": int(budget), "done": 0}
+        self._fused_vec_sum = None
+        return True
+
+    def finish_fused_updates(self):
+        """Disarm the plan; returns (the summed metric vector on the device
+        or None, the gradient steps taken)."""
+        plan, self._fused_plan = self._fused_plan, None
+        vec, self._fused_vec_sum = self._fused_vec_sum, None
+        return vec, (plan["done"] if plan else 0)
+
+    def _fused_act_dispatch(self, obs):
+        """One chunk of updates and the explore act under the armed plan, on
+        the act's host-side obs (``_host_obs``); returns the actions on the
+        device, or None when the budget has no chunk left (the caller acts
+        as usual)."""
+        plan = self._fused_plan
+        chunk, mem = plan["chunk"], plan["mem"]
+        if plan["budget"] < chunk:
+            return None
+
+        def body(o):
+            with torch.enable_grad():
+                vec = self._update_vecs(mem, chunk)
+            return vec, self.act(self._device_obs(o), "explore")
+
+        vec, actions = self._program("act", chunk, body, inputs=obs, memory=mem)
+        plan["budget"] -= chunk
+        plan["done"] += chunk
+        self._fused_vec_sum = vec if self._fused_vec_sum is None else self._fused_vec_sum + vec
+        return actions
+
+    # ------------------------------------------------------ the eager step
+    def _sample(self, memory):
         if self.model.is_recurrent:
             if not hasattr(memory, "sample_windows"):
                 raise TypeError("Recurrent agents need T-step window sampling: use the host ReplayMemory with "
                                 "sampling_cfg type TStepTransition")
-            sampled = memory.sample_windows(self.batch_size, getattr(memory.sampling, "horizon", 8))
-        else:
-            sampled = memory.sample(self.batch_size)
+            return memory.sample_windows(self.batch_size, getattr(memory.sampling, "horizon", 8))
+        return memory.sample(self.batch_size)
+
+    def _update_vec(self, memory) -> torch.Tensor:
+        """One gradient step on a fresh sample of ``memory``: its metrics as
+        one vector on the device, in the order of ``_metric_keys``."""
+        return self._batch_update_vec(self._prepare_batch(self._sample(memory)))
+
+    def _update_vecs(self, memory, n: int) -> torch.Tensor:
+        """``n`` of ``_update_vec``, their vectors summed."""
+        total = None
+        for _ in range(n):
+            vec = self._update_vec(memory)
+            total = vec if total is None else total + vec
+        return total
+
+    def _batch_update_vec(self, batch) -> torch.Tensor:
+        """One gradient step on a prepared batch on the device."""
         dp = self.data_parallel
         with dp.sharded_draws():
-            metrics = self._update_step(dp.shard(self._prepare_batch(sampled)))
+            metrics = self._update_step(dp.shard(batch))
         self._metric_keys = keys = sorted(metrics)
         vec = torch.stack([metrics[k].detach().float().reshape(()) for k in keys])
         return dp.reduce_metrics(vec, [k.endswith("/max_critic_abs_err") for k in keys])
@@ -312,7 +443,8 @@ class SAC(BaseAgent):
         loss = ((q - q_target) ** 2).mean() * model.num_q
         grads = self._step(loss, self._critic_named, self.critic_tx)
         err = (q - q_target).abs().max()
-        return loss, q.detach(), global_grad_norm(grads), err, (feat.detach() if feat is not None else None)
+        saved = feat.detach() if feat is not None else None
+        return loss, q.detach(), global_grad_norm(grads, self.device), err, saved
 
     def _actor_alpha_step(self, batch, saved_feat, actor_obs=None):
         model = self.model
@@ -335,7 +467,7 @@ class SAC(BaseAgent):
         actor_loss = -(q_pi + alpha * entropy_term)
         grads = self._step(actor_loss, self._actor_named, self.actor_tx)
         alpha_loss = self._alpha_step(entropy_term)
-        return actor_loss, alpha_loss, entropy_term, global_grad_norm(grads), q_match
+        return actor_loss, alpha_loss, entropy_term, global_grad_norm(grads, self.device), q_match
 
     def _alpha_step(self, entropy_term: torch.Tensor) -> torch.Tensor:
         if not self.automatic_alpha_tuning:
@@ -451,14 +583,17 @@ class SAC(BaseAgent):
             actor_loss = -((q_pi * is_valid).sum() / n_valid.clamp_min(1.0) + alpha * ent)
             a_grads = self._step(actor_loss, self._actor_named, self.actor_tx, norm_keys={"actor"})
             alpha_loss = self._alpha_step(ent)
-            return actor_loss, alpha_loss, ent, global_grad_norm(a_grads), torch.zeros((), device=self.device)
+            zero = torch.zeros((), device=self.device)
+            return actor_loss, alpha_loss, ent, global_grad_norm(a_grads, self.device), zero
 
-        return self._gated_steps(critic_loss, q.detach(), q_target, global_grad_norm(grads), abs_err, actor_step)
+        return self._gated_steps(critic_loss, q.detach(), q_target, global_grad_norm(grads, self.device), abs_err,
+                                 actor_step)
 
     # ---------------------------------------------------------- checkpoint
     def load_params(self, state_dict: Dict[str, torch.Tensor]) -> None:
         """Load a ``convert.params_from_jax`` state dict: live networks,
         ``target.*`` and ``log_alpha``.  Optimizer state is left as is."""
+        self._drop_programs()
         live = {k: v for k, v in state_dict.items() if not k.startswith("target.") and k != "log_alpha"}
         self.model.load_state_dict(live)
         target = {k[len("target."):]: v for k, v in state_dict.items() if k.startswith("target.")}
@@ -485,6 +620,7 @@ class SAC(BaseAgent):
         }
 
     def load_state_dict(self, state: Dict) -> None:
+        self._drop_programs()  # the optimizers' loaded state replaces the tensors the programs read
         self.model.load_state_dict(state["model"])
         self.target.load_state_dict(state["target"])
         with torch.no_grad():

@@ -12,6 +12,14 @@ each observation as the model-input tensor (``pack_device_features``:
 one, is stripped before upload and re-synthesized on the device.  At 1200
 points x 8 channels in bf16 that is 19.2 KB per observation.
 
+The fill level lives on the device too (``device_size``, an int64 scalar
+that ``push_batch`` and ``reset`` update in place), and ``_draw_indices``
+draws against it, as the JAX package's programs draw against a traced
+size: a captured CUDA graph of the agent's update then samples the buffer
+as it stands at each replay.  ``storage_version`` counts the times the
+storage tensors were made or moved (the first push, ``place_on``), so an
+agent knows when the graphs that read them are stale.
+
 ``tail`` (the snapshot ``train_rl``'s ``save_replay`` writes), ``get_all``
 and ``to_hdf5`` gather to the host in chunks of rows; ``load_hdf5`` pushes
 a snapshot back in chunks as it reads them (``push_in_chunks``).
@@ -70,6 +78,8 @@ class DeviceReplayMemory:
         self._synth_pos = None  # (rows, points per frame) of a stripped pos_encoding
         self.seed = int(seed or 0)
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.device_size = torch.zeros((), dtype=torch.int64, device=self.device)  # len(self), on the device
+        self.storage_version = 0  # +1 whenever ``storage`` is made or moved
         self._traj_cache: Dict[int, list] = {}
 
     def __len__(self) -> int:
@@ -78,6 +88,7 @@ class DeviceReplayMemory:
     def reset(self) -> None:
         self.position = 0
         self.running_count = 0
+        self.device_size.fill_(0)
 
     # ----------------------------------------------------------------- push
     def _clean(self, items: Dict[str, Any]) -> Dict[str, Any]:
@@ -129,6 +140,7 @@ class DeviceReplayMemory:
             self.storage = tree_map(
                 lambda x: torch.zeros((self.capacity,) + tuple(x.shape[1:]), dtype=x.dtype, device=self.device),
                 items)
+            self.storage_version += 1
         end = self.position + batch
         if end <= self.capacity:
             self._write(self.position, items)
@@ -138,6 +150,7 @@ class DeviceReplayMemory:
             self._write(0, tree_map(lambda x: x[first:], items))
         self.position = end % self.capacity
         self.running_count += batch
+        self.device_size.fill_(len(self))
 
     # full-episode trajectory caching is the host replay's
     def cache_trajectories(self, items, max_push: int = -1) -> int:
@@ -148,7 +161,11 @@ class DeviceReplayMemory:
 
     # --------------------------------------------------------------- sample
     def _draw_indices(self, batch_size: int) -> torch.Tensor:
-        return torch.randint(0, len(self), (batch_size,), generator=self.generator, device=self.device)
+        """``batch_size`` indices in ``[0, device_size)``, with no host read
+        of the size: 62 random bits modulo the size (a bias below 2**-35 for
+        any capacity a card holds)."""
+        bits = torch.randint(0, 2**62, (batch_size,), generator=self.generator, device=self.device)
+        return bits.remainder(self.device_size)
 
     def gather(self, idx: torch.Tensor) -> Dict[str, Any]:
         """The rows ``idx`` (a tensor on the storage's device) of every leaf."""
@@ -234,4 +251,6 @@ class DeviceReplayMemory:
         self.device = device
         if self.storage is not None:
             self.storage = tree_map(lambda x: x.to(device), self.storage)
+        self.storage_version += 1
+        self.device_size = self.device_size.to(device)
         self.generator = torch.Generator(device=device).manual_seed(self.seed)

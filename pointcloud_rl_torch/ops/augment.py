@@ -60,6 +60,17 @@ def _shallow_copy(data):
     return data
 
 
+def _device_constant(owner, name, device, make) -> torch.Tensor:
+    """``make()`` (a CPU tensor) on ``device``, uploaded once per device and
+    kept on ``owner``: an upload inside a captured CUDA graph of the update
+    would be a host copy, which the capture refuses."""
+    cache = owner.__dict__.setdefault("_device_constants", {})
+    key = (name, torch.device(device))
+    if key not in cache:
+        cache[key] = make().to(device)
+    return cache[key]
+
+
 def _uniform(generator, shape, low, high, device) -> torch.Tensor:
     """Uniform f32 in [low, high) drawn from ``generator`` on ``device``."""
     u = draw_rows(lambda s: torch.rand(s, generator=generator, device=device, dtype=torch.float32), shape)
@@ -186,7 +197,7 @@ class GlobalRotScaleTrans(BaseAugmentation):
             base = torch.eye(3, device=dev).expand(B, 3, 3) if rot is None else rot
             rot = base * scale
         if self.translation_range is not None:
-            trange = torch.as_tensor(self.translation_range, device=dev)
+            trange = _device_constant(self, "translation_range", dev, lambda: torch.from_numpy(self.translation_range))
             delta = (draw_rows(lambda s: torch.rand(s, generator=generator, device=dev), (B, 3)) - 0.5) * 2.0 * trange
             if not self.shift_height:
                 delta[..., 2] = 0.0
@@ -377,10 +388,10 @@ class ColorJitterPoints(BaseAugmentation):
             theta = 2 * math.pi * h
             cos_t, sin_t = torch.cos(theta), torch.sin(theta)
             one, zero = torch.ones_like(cos_t), torch.zeros_like(cos_t)
-            tyiq = torch.tensor([[0.299, 0.587, 0.114], [0.596, -0.274, -0.321], [0.211, -0.523, 0.311]],
-                                device=x.device)
-            ityiq = torch.tensor([[1.0, 0.956, 0.621], [1.0, -0.272, -0.647], [1.0, -1.107, 1.705]],
-                                 device=x.device)
+            tyiq = _device_constant(self, "tyiq", x.device, lambda: torch.tensor(
+                [[0.299, 0.587, 0.114], [0.596, -0.274, -0.321], [0.211, -0.523, 0.311]]))
+            ityiq = _device_constant(self, "ityiq", x.device, lambda: torch.tensor(
+                [[1.0, 0.956, 0.621], [1.0, -0.272, -0.647], [1.0, -1.107, 1.705]]))
             rot = torch.stack([one, zero, zero, zero, cos_t, -sin_t, zero, sin_t, cos_t]).reshape(3, 3)
             m = ityiq @ rot @ tyiq
             return torch.einsum("ij,bjn->bin", m, x).clamp(0.0, 1.0)
@@ -496,8 +507,10 @@ class RandomCrop(BaseAugmentation):
             return F.pad(x, (l, r, t, b), value=self.pad_val)
         # numpy's own pad of an index range gives each padded row/column's source
         h, w = x.shape[-2:]
-        rows = torch.as_tensor(np.pad(np.arange(h), (t, b), mode=self.padding_mode), device=x.device)
-        cols = torch.as_tensor(np.pad(np.arange(w), (l, r), mode=self.padding_mode), device=x.device)
+        rows = _device_constant(self, ("rows", h), x.device,
+                                lambda: torch.from_numpy(np.pad(np.arange(h), (t, b), mode=self.padding_mode)))
+        cols = _device_constant(self, ("cols", w), x.device,
+                                lambda: torch.from_numpy(np.pad(np.arange(w), (l, r), mode=self.padding_mode)))
         return x[..., rows[:, None], cols[None, :]]
 
     def sample_info(self, generator, main_data):

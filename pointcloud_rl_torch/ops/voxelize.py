@@ -32,9 +32,8 @@ def compute_voxel_coords(xyz: torch.Tensor, voxel_size: float, origin: Optional[
     if origin is None:
         origin = xyz.detach().amin(dim=-2, keepdim=True)
     coords = torch.floor((xyz - origin) / voxel_size).to(torch.int32)
-    if grid_size is not None:
-        top = torch.tensor([int(g) - 1 for g in grid_size], dtype=torch.int32, device=xyz.device)
-        coords = torch.minimum(coords.clamp_min(0), top)
+    if grid_size is not None:  # per axis, with no host tensor to upload (a captured update allows none)
+        coords = torch.stack([coords[..., i].clamp(0, int(g) - 1) for i, g in enumerate(grid_size)], dim=-1)
     return coords
 
 

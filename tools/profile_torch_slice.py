@@ -30,7 +30,8 @@ exactly as ``run_rl`` does, fills the replay with random steps, then:
    clock; the rollout's own split (agent / simulation / copy) per cycle; and
    one profiled window of 10 cycles for the device time.
 2. Update: ``--updates`` calls of ``agent.update_parameters`` (sampling,
-   upload, the SAC or DrQ step): wall ms per update and its parts, each
+   upload, the SAC or DrQ step, a replay of its captured CUDA graph, with
+   the metric fetch): wall ms per update and its eager parts, each
    timed alone and synchronised (``replay.sample``: a host gather, or a
    gather on the card; a recurrent agent's ``replay.sample_windows``, the
    host gather of ``[B, H]`` windows, with the bytes of their obs and
@@ -290,6 +291,7 @@ def main() -> int:
         tf32 = None
         if visual["type"] in ("SparseCNN", "VoxelCNN", "NatureCNN", "DMCEncoder", "IMPALA"):  # convolutions
             conv_ops.ALLOW_TF32 = True
+            agent._drop_programs()  # the captured updates hold the f32 convolutions
             try:
                 for i in range(5):
                     agent.update_parameters(replay, first + 2 * args.updates + i)
