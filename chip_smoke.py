@@ -19,7 +19,8 @@ Phases (any failure exits non-zero and prints no result):
 3. Each kernel against its plain PyTorch version on the same inputs, at the
    training slices' encoder shapes (SAC f32, DrQ f32 and bf16, the
    recurrent target's 64 x 9 windows in f32; the recurrent critic's 64 x 8
-   rows are DrQ's 512; a data-parallel rank's 128 rows of SAC's 256), the act encode's (4 env workers, f32 and bf16),
+   rows are DrQ's 512; a data-parallel rank's 128 rows of SAC's 256 at 2
+   ranks, 64 at 4), the act encode's (4 env workers, f32 and bf16),
    the walker encoder's (f32 and bf16), the walker act's (16 env
    workers, bf16), the DrQ walker recipe's update encodes (512 rows, bf16)
    and the ManiSkill configs' 9-channel clouds (SAC's 256 rows, DrQ's 512,
@@ -153,12 +154,34 @@ Phases (any failure exits non-zero and prints no result):
    global batch (``DP_TOL`` but for Adam's flips, at most ``DP_FLIPS``
    elements; metrics to ``UPDATE_METRIC_RTOL``), and every update of the
    planted fault must fail that check; the free runs' gaps are printed; each rank must
-   launch each kernel once per update, on its rows.  Then ``DP_TIMED``
-   updates: ms per update of each world (correctness runs: gloo stages
-   through the host), ms of the gradient all-reduces per update and of the
-   transition broadcast per cycle.
+   launch each kernel once per update, on its rows.  The NCCL ranks and
+   the 1-rank agent replay CUDA graphs (their all-reduces captured), the
+   gloo ranks run eagerly; the NCCL world of one must be bitwise the 1-rank
+   agent (the mean over one rank is the identity).  Then ``DP_TIMED``
+   updates: ms per update of each world, the gloo ranks' gradient
+   all-reduces per update (host clock), the NCCL kernels inside one replay
+   (``torch.profiler``: a capture may not sync) and the transition
+   broadcast per cycle.  Each NCCL rank then runs the graphs phase's
+   checks (3b) with both twins ranks of its world, the graphed one's
+   all-reduces captured, the eager one's eager: the walker recipe's scans,
+   its act-fused forwards (and the body kernels inside one replay against
+   ``launch_counts``) and the SAC slice's host batches, bitwise, with host
+   and device ms per update, graphed against eager.  Every rank frees its
+   programs before it leaves the process group: NCCL frees a communicator
+   only once no graph holds its collectives (``end_world``).
    (c) ``run_rl --profile 5`` on the SAC slice: its ``torch.profiler``
    trace must name both body kernels.
+   (e) Updates interleaved with collection on a world (``--interleave-worker``):
+   the pipelined DrQ walker ``pn_shift_tpu.py`` at full width (global
+   batch 256, its replay cut to ``INTERLEAVE_CAPACITY``) through
+   ``train_rl``, 1000 warm-up steps and ``INTERLEAVE_CYCLES`` cycles of 16
+   env steps and 16 updates, rank 0 collecting over ``WalkerRawStandIn``:
+   as 2 gloo ranks on cuda:0 (eager), with ``--dp-nccl-ranks N`` >= 2 as N
+   graphed NCCL ranks, and outside a process group.  The ranks of a world
+   must end bitwise equal, every rank's scans (with the buffer each
+   sampled) must be those outside a group, the chunk on the buffer before
+   its cycle's push; both kernels launched on every rank; updates/s and
+   rank 0's device idle share (``torch.profiler`` over the last cycle).
 11. A world across hosts (``hosts``), each host a fresh process
    (``--hosts-worker``) with torchrun's variables (``GROUP_RANK`` h,
    ``LOCAL_RANK`` 0, ``LOCAL_WORLD_SIZE`` 1) that joins a gloo world on
@@ -284,12 +307,13 @@ RNN_OPTS = ["agent_cfg.actor_cfg.nn_cfg.rnn_cfg.type=GRU", "agent_cfg.actor_cfg.
 # (a run must pass 1000 steps: it logs every 500 after the 512-step warm-up).
 RUNS = [
     ("sac", SLICE_CONFIG, [FUSED, "replay_cfg.capacity=20000"], "sac", True, 1200),
+    # the slowest first, so that the pair of runs ends close together
+    ("drq_voxel", VOXEL_CONFIG, ["replay_cfg.capacity=20000"], "drq", False, 1000),
     ("sac_rnn", SLICE_CONFIG, [FUSED, *RNN_OPTS, "replay_cfg.capacity=20000"], "sac", True, 1200),
     ("ddpg", SLICE_CONFIG, [FUSED, "agent_cfg.type=DDPG", "replay_cfg.capacity=20000"], "ddpg", True, 1200),
     ("drq_host", DRQ_CONFIG, [FUSED, "replay_cfg.capacity=20000"], "drq", True, 1200),
     ("drq_device", DRQ_CONFIG, [FUSED, "replay_cfg.type=DeviceReplayMemory",
                                 "replay_cfg.transfer_cfg.pack_features=True", "agent_cfg.bf16=True"], "drq", True, 1200),
-    ("drq_voxel", VOXEL_CONFIG, ["replay_cfg.capacity=20000"], "drq", False, 1000),
 ]
 RUNS_AT_ONCE = 2  # runs of the runs phase that share the card and the host at a time, after the SAC run alone
 RUNS_PROFILE_STEPS = 40  # env steps of the SAC run under torch.profiler: the device's busy time
@@ -299,7 +323,8 @@ TPU_KERNELS = {
     "pointnet_fused_fwd_max": "pointcloud_rl_tpu/ops/pointnet_fused.py:138",
 }
 # (name, B, N, C_in, widths, compute dtype name): the main path's shapes,
-# timed (SAC's and DDPG's update encodes at B=256, DrQ's at 2 x 256 rows
+# timed (SAC's and DDPG's update encodes at B=256, a data-parallel rank's
+# 128 of them at 2 ranks and 64 at 4, DrQ's at 2 x 256 rows
 # in f32 and in bf16, which are also the recurrent critic's 64 x 8 window
 # rows, the recurrent target's 64 x 9, the act encode at 4 env workers in
 # f32 and in bf16, the walker encoder of the dmc run's updates, and its act
@@ -311,6 +336,7 @@ TPU_KERNELS = {
 SHAPES = [
     ("slice_f32", 256, 1200, 8, (128, 128, 256), "float32"),
     ("dp_rank_f32", 128, 1200, 8, (128, 128, 256), "float32"),
+    ("dp_rank4_f32", 64, 1200, 8, (128, 128, 256), "float32"),
     ("drq_f32", 512, 1200, 8, (128, 128, 256), "float32"),
     ("rnn_target_f32", 576, 1200, 8, (128, 128, 256), "float32"),
     ("drq_bf16", 512, 1200, 8, (128, 128, 256), "bfloat16"),
@@ -1659,6 +1685,7 @@ class DPStubRollout:
     rollout pushes them; ``replicate_rollout`` broadcasts each push."""
 
     num_envs = 4
+    pipeline_groups = 1
 
     def __init__(self, obs_shape, seed: int = 0):
         rs = np.random.RandomState(seed)
@@ -1823,12 +1850,16 @@ def dp_worker(mode: str, out_path: str) -> None:
     rank = dist.get_rank() if dist.is_initialized() else 0
     stub = DPStubRollout(info["obs_shape"]) if rank == 0 else None
     rollout, reduce_s = stub, []
+    reduce_calls = [0]  # the all-reduce calls the update makes in Python (eager runs and captures)
     if mode != "single":
         dp = setup_data_parallel(agent, dist.get_world_size(), replay=replay)
         rollout = replicate_rollout(stub)
         reduce = dp.allreduce_grads
 
         def timed_reduce(grads):  # the gradient all-reduce of an optimizer step, host clock
+            reduce_calls[0] += 1
+            if agent._graphed():  # a capture may not sync: a graphed rank's all-reduces are timed from a trace
+                return reduce(grads)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = reduce(grads)
@@ -1869,15 +1900,22 @@ def dp_worker(mode: str, out_path: str) -> None:
               "launches": launches, "rows": rows, "graphed": agent._graphed(),
               "ms_per_update": 1e3 * float(np.median(t_update)),
               "replay_len": len(replay), "allreduce_ms_per_update": 1e3 * sum(reduce_s) / DP_TIMED,
-              "allreduce_calls_per_update": len(reduce_s) / DP_TIMED,
+              "allreduce_calls_per_update": len(reduce_s) / DP_TIMED, "allreduce_python_calls": reduce_calls[0],
               "broadcast_ms_per_cycle": 1e3 * float(np.median(broadcast_s)),
               "backend": dist.get_backend() if dist.is_initialized() else None,
               "world": dist.get_world_size() if dist.is_initialized() else 1}
+    if mode == "nccl":  # the collectives inside one replay of the one-update program, from a trace
+        trace = collective_trace(lambda: agent.update_parameters_lazy(replay, 0),
+                                 torch.profiler.ProfilerActivity)
+        result.update(allreduce_ms_per_update=trace["nccl_ms"], allreduce_calls_per_update=trace["nccl_kernels"],
+                      device_ms_per_update=trace["busy_ms"])
     if mode == "single":
         worlds = dict(w.split("=", 1) for w in os.environ["DP_WORLDS"].split(","))
         result["checks"] = check_worlds(agent, replay, steps, worlds)
     elif rank == 0:
         torch.save(steps, out_path + ".steps")
+    if mode == "nccl":  # (b) the graphed rank against its eager twin, as the graphs phase holds them
+        result["twins"] = dp_twins()
     torch.save(result, out_path)
     if mode == "gloo":  # (a') the planted fault, from the same start: each rank draws for its own rows only
         agent.load_state_dict(start[0])
@@ -1889,8 +1927,209 @@ def dp_worker(mode: str, out_path: str) -> None:
                    fault_path(out_path))
         if rank == 0:
             torch.save(f_steps, fault_path(out_path) + ".steps")
+    end_world(agent)
+
+
+# (e) updates interleaved with collection on a world: the pipelined DrQ
+# walker (the pipeline phase's run, pn_shift_tpu.py) at full width, its
+# replay cut to INTERLEAVE_CAPACITY and its run to the warm-up and
+# INTERLEAVE_CYCLES cycles (the first two hold the programs' eager runs and
+# captures, the last runs under torch.profiler).
+INTERLEAVE_CAPACITY = 20000
+INTERLEAVE_CYCLES = 6
+
+
+def interleave_worker(mode: str, out_path: str) -> None:
+    """One process of dp (e) (``--interleave-worker MODE OUT``): ``gloo`` a
+    rank on cuda:0 over gloo, ``nccl`` rank r on cuda:r over NCCL (N >= 2
+    cards), ``single`` the agent outside a process group.  Rank 0 collects
+    with the walker stand-in; ``train_rl`` runs the config's 1000 warm-up
+    steps and ``INTERLEAVE_CYCLES`` cycles of 16 env steps with the 16
+    updates interleaved (on a world, in lockstep with rank 0's collection).
+    Writes the scans with the buffer each sampled, the final train state,
+    the kernel launches and the cycles' times."""
+    import torch
+    import torch.distributed as dist
+
+    from pointcloud_rl_torch.algorithms import build_agent
+    from pointcloud_rl_torch.apis.train_rl import train_rl
+    from pointcloud_rl_torch.env import build_replay, build_rollout
+    from pointcloud_rl_torch.ops import pointnet_fused as pf
+    from pointcloud_rl_torch.parallel import init_distributed, replicate_rollout, setup_data_parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if mode == "gloo":
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{os.environ['MASTER_PORT']}",
+                                world_size=int(os.environ["WORLD_SIZE"]), rank=int(os.environ["RANK"]))
+    elif mode == "nccl":
+        torch.cuda.set_device(int(os.environ["RANK"]))
+        if not init_distributed(device="cuda"):
+            fail("dp (e): init_distributed did not join the NCCL world from the environment")
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    agent_cfg, info, cfg = walker_agent_cfg(PIPELINE_CONFIG)
+    train_cfg = dict(cfg["train_cfg"])
+    n_steps, n_updates, warm = train_cfg["n_steps"], train_cfg["n_updates"], train_cfg["warm_steps"]
+    agent = build_agent(dict(agent_cfg, env_params=info, seed=PIPE_SEED, device="cuda"))
+    replay = build_replay(dict(cfg["replay_cfg"], capacity=INTERLEAVE_CAPACITY), dict(seed=PIPE_SEED),
+                          device=agent.device)
+    rollout = None
+    if rank == 0:
+        rollout = build_rollout(dict(cfg["rollout_cfg"], env_cfg=walker_env_cfg(), base_seed=PIPE_SEED,
+                                     vec_backend="thread", device="cuda"))
+    if dist.is_initialized():
+        setup_data_parallel(agent, dist.get_world_size(), replay=replay)
+        rollout = replicate_rollout(rollout)
+    scans, vecs, cycles = [], [], []
+    scan, collect = agent.update_parameters_scan, rollout.forward_with_policy
+    acts = torch.profiler.ProfilerActivity
+
+    def recorded_scan(memory, n):
+        scans.append((len(memory), n))
+        vec = scan(memory, n)
+        vecs.append(vec)
+        return vec
+
+    def timed_collect(pi, num, replay=None, **kwargs):
+        if pi is None:  # the warm-up
+            return collect(pi, num, replay, **kwargs)
+        if len(cycles) == INTERLEAVE_CYCLES - 1:
+            box = {}
+            host, busy = profiled(lambda: box.update(out=collect(pi, num, replay, **kwargs)), acts)
+            cycles.append((host / 1e3, busy))
+            return box["out"]
+        t0 = time.perf_counter()
+        out = collect(pi, num, replay, **kwargs)
+        cycles.append((time.perf_counter() - t0, None))
+        return out
+
+    agent.update_parameters_scan, rollout.forward_with_policy = recorded_scan, timed_collect
+    work = osp.join(osp.dirname(out_path), f"interleave_{mode}_{rank}")
+    try:
+        pf.reset_launch_counts()
+        out = train_rl(agent, rollout, None, replay, work_dir=work, total_steps=warm + INTERLEAVE_CYCLES * n_steps,
+                       warm_steps=warm, n_steps=n_steps, n_updates=n_updates, n_log=10 ** 9, n_eval=-1,
+                       n_checkpoint=-1)
+        torch.cuda.synchronize()
+        launches = dict(pf.launch_counts)
+    finally:
+        rollout.close()
+    final = train_state_on_host(agent)
+    wall = float(np.mean([w for w, _ in cycles[2:-1]]))
+    torch.save({"final": {k: final[k] for k in ("model", "target", "log_alpha")}, "scans": scans,
+                "finite": bool(torch.isfinite(torch.stack(vecs)).all()), "launches": launches,
+                "graphed": agent._graphed(), "grad_steps": out["grad_steps"], "warm": warm, "n_steps": n_steps,
+                "n_updates": n_updates, "ms_per_cycle": 1e3 * wall, "updates_per_s": n_updates / wall,
+                "device_busy_ms_per_cycle": cycles[-1][1], "device_idle_share": 1.0 - cycles[-1][1] / (1e3 * wall),
+                "world": dist.get_world_size() if dist.is_initialized() else 1}, out_path)
+    end_world(agent)
+
+
+def dp_interleave(work: str, card: str, nccl_ranks: int) -> dict:
+    """(e) The pipelined DrQ walker through ``train_rl`` as 2 gloo ranks on
+    one card (eager), with ``nccl_ranks`` >= 2 as that many graphed NCCL
+    ranks, and outside a process group: the ranks of a world bitwise equal
+    at the end; every rank's scans, with the buffer each sampled, those of
+    the agent outside a group (each cycle's 16 updates as one chunk after
+    its act dispatch, on the buffer before its push); both kernels launched
+    on every rank; updates/s and rank 0's idle share."""
+    worlds = {"gloo": run_dp_workers(work, "gloo", 2, phase="interleave")}
+    if nccl_ranks > 1:
+        worlds["nccl"] = run_dp_workers(work, "nccl", nccl_ranks, phase="interleave")
+    one, = run_dp_workers(work, "single", 1, phase="interleave")
+    want = [(one["warm"] + c * one["n_steps"], one["n_updates"]) for c in range(INTERLEAVE_CYCLES)]
+    if one["scans"] != want:
+        fail(f"dp (e): the agent outside a group scanned {one['scans']}, expected {want}")
+    rec = {"single": {k: one[k] for k in ("updates_per_s", "ms_per_cycle", "device_idle_share", "graphed")},
+           "launches": dict(one["launches"])}
+    for name, ranks in worlds.items():
+        for r, res in enumerate(ranks):
+            if res["scans"] != one["scans"] or not res["finite"] or res["grad_steps"] != one["grad_steps"]:
+                fail(f"dp (e) {name} rank {r}: scans {res['scans']} (finite metrics {res['finite']}, "
+                     f"{res['grad_steps']} updates), the agent outside a group {one['scans']}")
+            if res["graphed"] != (name == "nccl"):
+                fail(f"dp (e) {name} rank {r}: graphed {res['graphed']}")
+            for kname in TPU_KERNELS:
+                if res["launches"][kname] <= 0:
+                    fail(f"dp (e) {name} rank {r}: {kname} was never launched")
+        for r, res in enumerate(ranks[1:], 1):
+            dp_bitwise(dict(res, metrics=None), dict(ranks[0], metrics=None), f"(e) {name} rank {r} vs rank 0")
+        r0 = ranks[0]
+        rec[name] = {"ranks": len(ranks), "updates_per_s": r0["updates_per_s"], "ms_per_cycle": r0["ms_per_cycle"],
+                     "device_idle_share": r0["device_idle_share"], "graphed": r0["graphed"],
+                     "launches": {k: sum(res["launches"][k] for res in ranks) for k in TPU_KERNELS}}
+        print(f"[dp] (e) {PIPELINE_CONFIG} at full width (global batch 256, replay {INTERLEAVE_CAPACITY}), "
+              f"{len(ranks)} {name} ranks ({'graphed' if r0['graphed'] else 'eager'}), {r0['warm']} warm-up steps then "
+              f"{INTERLEAVE_CYCLES} cycles of {r0['n_steps']} env steps: every rank's {len(r0['scans'])} chunks of "
+              f"{r0['n_updates']} on the buffer before its cycle's push ({[s for s, _ in r0['scans']]}), as outside "
+              f"a group; the ranks bitwise equal; {r0['updates_per_s']:.1f} updates/s ({r0['ms_per_cycle']:.1f} ms "
+              f"per cycle), rank 0's device idle {r0['device_idle_share']:.1%}; outside a group (graphed) "
+              f"{one['updates_per_s']:.1f} updates/s, idle {one['device_idle_share']:.1%}; kernel launches per rank "
+              f"{r0['launches']} on {card}", flush=True)
+        for k in TPU_KERNELS:
+            rec["launches"][k] += rec[name]["launches"][k]
+    return rec
+
+
+def end_world(agent) -> None:
+    """Free every captured update program (NCCL frees a communicator only
+    once no graph holds its collectives), then leave the process group."""
+    import gc
+
+    import torch.distributed as dist
+
+    agent.drop_programs()
+    gc.collect()  # the twins' programs, in reference cycles with their agents
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def collective_trace(fn, acts, n: int = 1) -> dict:
+    """Per update of ``fn()`` (``n`` updates) under torch.profiler: the NCCL
+    kernels and their device ms, and the device busy ms."""
+    import torch
+
+    with torch.profiler.profile(activities=[acts.CPU, acts.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    nccl_ms = busy = 0.0
+    kernels = 0
+    for evt in prof.key_averages():
+        if getattr(evt, "is_user_annotation", False) or "#" in evt.key:
+            continue
+        dt = getattr(evt, "self_device_time_total", None)
+        if dt is None:
+            dt = evt.self_cuda_time_total
+        if not dt or evt.device_type is None or "CUDA" not in str(evt.device_type):
+            continue
+        busy += dt / 1e3
+        if "nccl" in evt.key.lower():
+            nccl_ms += dt / 1e3
+            kernels += evt.count
+    return {"nccl_ms": nccl_ms / n, "nccl_kernels": kernels / n, "busy_ms": busy / n}
+
+
+def dp_twins() -> dict:
+    """(b) On an NCCL rank: the graphs phase's checks with both twins ranks
+    of the world, the graphed one's all-reduces captured in its programs,
+    the eager one's run eagerly: the walker recipe's scans of 16 and 3 at
+    both gate phases and its act-fused forwards, the SAC slice's host
+    batches, each bitwise; host and device ms per update, graphed against
+    eager, and the NCCL kernels inside one replay of 16 updates."""
+    import torch
+
+    from pointcloud_rl_torch.ops import pointnet_fused as pf
+
+    acts = torch.profiler.ProfilerActivity
+    card = torch.cuda.get_device_name()
+    rec: dict = {}
+    rec["walker"], graphed, eager, replay = graphs_storage(pf, "dp walker", WALKER_CONFIG, card, acts, ranks=True)
+    rec["act_fused"] = graphs_act_fused(pf, graphed, eager, replay, card, acts)
+    n = GRAPH_FUSED_CHUNK
+    rec["collectives"] = collective_trace(lambda: graphed.update_parameters_scan(replay, n), acts, n)
+    del graphed, eager, replay
+    torch.cuda.empty_cache()
+    rec["host_batch"] = graphs_host_batch(pf, card, acts, ranks=True)
+    return rec
 
 
 def _free_port() -> int:
@@ -1899,6 +2138,9 @@ def _free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         return sock.getsockname()[1]
+
+
+DP_WORKER_TIMEOUT = 600  # seconds a world's processes may take: 4 NCCL ranks run the twins' checks too
 
 
 def run_dp_workers(work: str, mode: str, n: int, extra_env=None, phase: str = "dp") -> list:
@@ -1922,7 +2164,7 @@ def run_dp_workers(work: str, mode: str, n: int, extra_env=None, phase: str = "d
         outs.append(out)
     for proc, log in procs:
         try:
-            rc = proc.wait(timeout=300)
+            rc = proc.wait(timeout=DP_WORKER_TIMEOUT)
         except subprocess.TimeoutExpired:
             for p, _ in procs:
                 os.killpg(p.pid, 9)
@@ -1930,8 +2172,11 @@ def run_dp_workers(work: str, mode: str, n: int, extra_env=None, phase: str = "d
             rc = "timeout"
         log.close()
         if rc != 0:
-            with open(log.name) as f:
-                fail(f"{phase} worker {mode} exited with {rc}:\n{f.read()[-4000:]}")
+            tails = []
+            for rank, (_, rank_log) in enumerate(procs):
+                with open(rank_log.name) as f:
+                    tails.append(f"--- rank {rank}:\n{f.read()[-2500:]}")
+            fail(f"{phase} worker {mode} exited with {rc}:\n" + "\n".join(tails))
     return [torch.load(o, weights_only=False) for o in outs]
 
 
@@ -1950,10 +2195,11 @@ def dp_bitwise(a: dict, b: dict, name: str) -> None:
 def check_dp_launches(name: str, res: dict, rows_per_launch: int) -> None:
     """Exactly one critic encode (with the argmax) and one next-obs encode
     (max only) per update, each on this rank's rows.  An agent outside a
-    process group replays captured graphs: the wrapper sees the launches of
-    each program's eager run and of its capture, and a replay repeats the
-    captured launches (``launch_counts`` counts them), so there every
-    launch the wrapper sees must be on the rows, and of both kernels."""
+    process group, and an NCCL rank, replay captured graphs: the wrapper
+    sees the launches of each program's eager run and of its capture, and
+    a replay repeats the captured launches (``launch_counts`` counts them),
+    so there every launch the wrapper sees must be on the rows, and of both
+    kernels."""
     want = {"pointnet_fused_fwd_idx": DP_UPDATES, "pointnet_fused_fwd_max": DP_UPDATES}
     if res["launches"] != want:
         fail(f"dp {name}: kernel launches {res['launches']}, expected {want}")
@@ -2006,13 +2252,37 @@ def phase_dp(card: str, nccl_ranks: int = 1) -> dict:
         runs_s = time.monotonic() - t0
         r0, nccl = gloo[0], ranks[0]
         print(f"[dp] ms per update (correctness runs; gloo stages through the host): world 1 "
-              f"{one['ms_per_update']:.2f}, world 2 gloo {r0['ms_per_update']:.2f} / {gloo[1]['ms_per_update']:.2f}, "
-              f"world {nccl_ranks} NCCL {nccl['ms_per_update']:.2f}; gradient all-reduce "
-              f"{r0['allreduce_ms_per_update']:.2f} ms per update over {r0['allreduce_calls_per_update']:.0f} calls "
-              f"(gloo), {nccl['allreduce_ms_per_update']:.3f} (NCCL, {nccl_ranks} ranks); transition broadcast "
+              f"{one['ms_per_update']:.2f} (graphed), world 2 gloo {r0['ms_per_update']:.2f} / "
+              f"{gloo[1]['ms_per_update']:.2f} (eager), world {nccl_ranks} NCCL {nccl['ms_per_update']:.2f} "
+              f"({'graphed' if nccl['graphed'] else 'eager'}; PR 7's 4 eager NCCL ranks: 11.0 / 19.0); gradient "
+              f"all-reduce {r0['allreduce_ms_per_update']:.2f} ms per update over "
+              f"{r0['allreduce_calls_per_update']:.0f} calls (gloo, host clock), NCCL kernels inside one replay "
+              f"{nccl['allreduce_ms_per_update']:.3f} device ms per update over {nccl['allreduce_calls_per_update']:.0f} "
+              f"kernels ({nccl_ranks} ranks, of {nccl['device_ms_per_update']:.2f} device ms); transition broadcast "
               f"{r0['broadcast_ms_per_cycle']:.2f} ms per cycle of {DP_CYCLES[1]} (gloo), "
               f"{nccl['broadcast_ms_per_cycle']:.2f} (NCCL, {nccl_ranks} ranks); workers {runs_s:.1f} s on {card}",
               flush=True)
+        if not all(res["graphed"] for res in ranks) or any(res["graphed"] for res in gloo) or not one["graphed"]:
+            fail(f"dp: graphed NCCL {[res['graphed'] for res in ranks]}, gloo {[res['graphed'] for res in gloo]}, "
+                 f"1 rank {one['graphed']}: NCCL ranks and 1 rank replay graphs, gloo ranks run eagerly")
+        if nccl_ranks == 1:  # a world of one: the mean all-reduce is the identity
+            dp_bitwise(nccl, one, "the graphed NCCL world of one vs the agent outside a process group")
+        for i, res in enumerate(ranks):
+            tw = res["twins"]
+            print(f"[dp] (b) NCCL rank {i} of {nccl_ranks}, graphed vs its eager twin (both ranks, the all-reduces "
+                  f"captured vs eager): bitwise after the walker's scans {tw['walker']['scans']} x "
+                  f"{tw['walker']['rounds']} rounds, {tw['act_fused']['forwards']} act-fused forwards and the SAC "
+                  f"slice's host batches; walker per update eager {tw['walker']['eager_host_ms_per_update']:.2f} "
+                  f"host ms ({tw['walker']['eager_wall_ms_per_update']:.2f} to done, device "
+                  f"{tw['walker']['eager_device_ms_per_update']:.2f}) vs graphed "
+                  f"{tw['walker']['graphed_host_ms_per_update']:.3f} host ms "
+                  f"({tw['walker']['graphed_wall_ms_per_update']:.2f} to done, device "
+                  f"{tw['walker']['graphed_device_ms_per_update']:.2f}); SAC host batch eager "
+                  f"{tw['host_batch']['eager_wall_ms_per_update']:.2f} vs graphed "
+                  f"{tw['host_batch']['graphed_wall_ms_per_update']:.2f} ms to done; one replay of "
+                  f"{GRAPH_FUSED_CHUNK} walker updates: {tw['collectives']['nccl_kernels']:.0f} NCCL kernels, "
+                  f"{tw['collectives']['nccl_ms']:.3f} device ms per update; body kernels in the replay "
+                  f"{tw['act_fused']['replay_kernels_traced']} on {card}", flush=True)
         want_len = DP_FILL[0] * DP_FILL[1] + DP_CYCLES[0] * DP_CYCLES[1]
         if any(res["replay_len"] != want_len for res in (*gloo, *ranks, one)):
             fail(f"dp: replay lengths {[res['replay_len'] for res in (*gloo, *ranks, one)]}, expected {want_len}")
@@ -2026,8 +2296,10 @@ def phase_dp(card: str, nccl_ranks: int = 1) -> dict:
         if not (r0["backend"] == "gloo" and r0["world"] == 2 and nccl["backend"] == "nccl"
                 and nccl["world"] == nccl_ranks):
             fail(f"dp: backends {r0['backend']}/{nccl['backend']}")
-        if r0["allreduce_calls_per_update"] <= 0 or nccl["allreduce_calls_per_update"] <= 0:
+        if r0["allreduce_calls_per_update"] <= 0 or min(res["allreduce_python_calls"] for res in ranks) <= 0:
             fail("dp: no gradient all-reduce ran")
+        if nccl_ranks > 1 and min(res["allreduce_calls_per_update"] for res in ranks) <= 0:
+            fail("dp: the replays of the NCCL ranks' programs hold no NCCL kernel")
         bad = [(u, k) for res in (r0, one, nccl) for u, m in enumerate(res["metrics"]) for k, v in m.items()
                if not math.isfinite(v)]
         if bad:
@@ -2086,6 +2358,7 @@ def phase_dp(card: str, nccl_ranks: int = 1) -> dict:
             print(f"[dp] run_rl --num-devices {nccl_ranks} --device cuda: {summary['steps']} env steps, "
                   f"{summary['grad_steps']} updates, {summary['updates_per_s']:.1f} updates/s, rank 0's launches "
                   f"{summary['launches']}, checkpoints {models}, eval at 576 on {card}", flush=True)
+        interleave = dp_interleave(work, card, nccl_ranks)  # (e)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return {"world2_gloo": {k: r0[k] for k in ("launches", "ms_per_update", "allreduce_ms_per_update",
@@ -2093,9 +2366,13 @@ def phase_dp(card: str, nccl_ranks: int = 1) -> dict:
             "world2_gloo_rank1_ms_per_update": gloo[1]["ms_per_update"],
             "world1_ms_per_update": one["ms_per_update"],
             f"world{nccl_ranks}_nccl": {k: nccl[k] for k in ("launches", "ms_per_update", "allreduce_ms_per_update",
-                                                            "broadcast_ms_per_cycle")},
-            "gaps": gaps, "profile_kernel_events": kernels,
-            "launches": {k: sum(res["launches"][k] for res in (*gloo, *ranks)) for k in TPU_KERNELS}}
+                                                            "allreduce_calls_per_update", "device_ms_per_update",
+                                                            "broadcast_ms_per_cycle", "graphed")},
+            "twins": [{k: res["twins"][k] for k in ("walker", "act_fused", "collectives", "host_batch")}
+                      for res in ranks],
+            "gaps": gaps, "profile_kernel_events": kernels, "interleave": interleave,
+            "launches": {k: sum(res["launches"][k] for res in (*gloo, *ranks)) + interleave["launches"][k]
+                         for k in TPU_KERNELS}}
 
 
 # ------------------------------------------------------------------ hosts
@@ -3208,14 +3485,24 @@ def train_state_mismatch(a, b) -> list:
     return bad
 
 
-def graph_twins(agent_cfg: dict, info: dict):
+def graph_twins(agent_cfg: dict, info: dict, ranks: bool = False):
     """Two agents on the card in one state: one runs the update programs
-    (CUDA graphs), the other calls the eager step they capture."""
+    (CUDA graphs), the other calls the eager step they capture; with
+    ``ranks``, both are ranks of the process group."""
     from pointcloud_rl_torch.algorithms import build_agent
 
     graphed = build_agent(dict(agent_cfg, env_params=info, seed=0, device="cuda"))
     eager = build_agent(dict(agent_cfg, env_params=info, seed=0, device="cuda"))
     eager.load_state_dict(graphed.state_dict())
+    if ranks:
+        import torch.distributed as dist
+
+        from pointcloud_rl_torch.parallel import setup_data_parallel
+
+        for agent in (graphed, eager):
+            setup_data_parallel(agent, dist.get_world_size())
+        if not graphed._graphed():
+            fail(f"dp: a {dist.get_backend()} rank's updates are not graphed")
     return graphed, eager
 
 
@@ -3263,10 +3550,11 @@ def program_stats(agent) -> dict:
             "pool_mb": sum(v["pool_bytes"] for v in stats.values()) / 2**20}
 
 
-def graphs_storage(pf, name: str, config: str, card: str, acts) -> dict:
+def graphs_storage(pf, name: str, config: str, card: str, acts, ranks: bool = False) -> dict:
     """(1) / (2): scans over the recipe's packed ``DeviceReplayMemory``, at
     both gate phases, graphed against eager from one state; the replay
-    grows between the captures and the replays."""
+    grows between the captures and the replays.  ``ranks``: both agents
+    are ranks of the process group."""
     import torch
 
     from pointcloud_rl_torch.env import build_replay
@@ -3274,7 +3562,7 @@ def graphs_storage(pf, name: str, config: str, card: str, acts) -> dict:
     agent_cfg, info, cfg = walker_agent_cfg(config)
     replay = build_replay(cfg["replay_cfg"], dict(seed=0), device="cuda")
     replay.push_batch(walker_raw_block(GRAPH_FILL, seed=1))
-    graphed, eager = graph_twins(agent_cfg, info)
+    graphed, eager = graph_twins(agent_cfg, info, ranks)
     n_updates = cfg["train_cfg"]["n_updates"]
     scans = tuple(n_updates if k == 16 else k for k in GRAPH_SCANS)
     sizes = []
@@ -3366,12 +3654,12 @@ def graphs_act_fused(pf, graphed, eager, replay, card: str, acts) -> dict:
     return {"chunk": chunk, "forwards": 4, "replay_kernels_traced": traced, "launch_counts_added": added}
 
 
-def graphs_host_batch(pf, card: str, acts) -> dict:
+def graphs_host_batch(pf, card: str, acts, ranks: bool = False) -> dict:
     """(3): the SAC slice (f32, 256 x 1200 x 8) on host batches: the
     one-update program, each batch copied into its static inputs, against
     the eager update on the same batch, at both gate phases."""
     agent_cfg, info, _ = resolved_agent_cfg(SLICE_CONFIG, [FUSED])
-    graphed, eager = graph_twins(agent_cfg, info)
+    graphed, eager = graph_twins(agent_cfg, info, ranks)
     rs = np.random.RandomState(4)
     B = graphed.batch_size
 
@@ -3445,7 +3733,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
     argv = sys.argv[1:]
-    for flag, worker in (("--dp-worker", dp_worker), ("--hosts-worker", hosts_worker)):
+    for flag, worker in (("--dp-worker", dp_worker), ("--hosts-worker", hosts_worker),
+                         ("--interleave-worker", interleave_worker)):
         if flag in argv:  # a process of the dp or the hosts phase
             at = argv.index(flag)
             worker(argv[at + 1], argv[at + 2])
@@ -3591,7 +3880,7 @@ def main() -> int:
             "launches_by_run": {name: run[kname] for name, run in by_run.items()},
             **{f"{shape}_{key}": shp[shape][key]
                for shape in ("drq_f32", "drq_bf16", "rnn_target_f32", "act_f32", "act_bf16", "act_walker_bf16",
-                             "dp_rank_f32", "maniskill_f32", "maniskill_drq_f32", "maniskill_act_f32",
+                             "dp_rank_f32", "dp_rank4_f32", "maniskill_f32", "maniskill_drq_f32", "maniskill_act_f32",
                              "walker_drq_bf16", "act2_f32", "act2_bf16", "maniskill_act2_f32")
                for key in ("ms", "plain_ms", "bound_ms")},
             "walker_f32_ms": shp["walker_f32"]["ms"],

@@ -37,10 +37,40 @@ A failed capture raises; nothing falls back to the eager step.  The
 programs are dropped (``invalidate``) when the tensors they read are
 replaced: the agent's ``load_state_dict`` and ``load_params``, and a move
 of the replay's storage (``storage_version``).
+
+On an NCCL rank of a data-parallel world (``parallel/mesh.py``) a program
+holds the update's collectives, the gradient all-reduce of each optimizer
+step and the metric reduce, as the JAX package's programs over a mesh
+hold theirs:
+
+- ProcessGroupNCCL makes its communicator at the first collective: the
+  program's eager first run does, before any capture.  The default
+  ("global") capture mode holds: ProcessGroupNCCL's watchdog thread does
+  not break it, on one rank or on four.
+- NCCL frees a communicator only once no graph holds its collectives: a
+  rank drops its programs (``SAC.drop_programs``) before its process group
+  is destroyed, or the destroy hangs.
+- Every rank takes the same programs in the same order, so each replayed
+  all-reduce pairs with its peers': the keys (kind, n, gate phase, input
+  signature, train mode) and the storage version change alike on every
+  rank, whose replicas get the same pushes; where a host lead runs an
+  ``act`` program of a chunk, the other ranks run a ``storage`` program of
+  the same chunk, whose collectives are the same, in the same order (the
+  act has none).
+- A replay is not covered by the process group's collective timeout: a
+  rank whose peers never replay waits inside its replay, and only the
+  stall watchdog (``utils/watchdog.py``, ``train_cfg.stall_timeout``) ends
+  it.
+- ``TORCH_NCCL_BLOCKING_WAIT`` must be off: a blocking wait would sync the
+  host inside the capture.
+- The host group's broadcasts (``parallel.distributed.host_broadcast``)
+  and the replays go through the current stream, one after another, in the
+  same order on every rank of a host.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
@@ -136,6 +166,9 @@ class UpdatePrograms:
 
     def _capture(self, key: Tuple, body: Callable, inputs, generators: Sequence) -> _Program:
         agent = self.agent
+        if agent.data_parallel.distributed and os.environ.get("TORCH_NCCL_BLOCKING_WAIT", "0") not in ("", "0"):
+            raise RuntimeError("TORCH_NCCL_BLOCKING_WAIT is set: its blocking wait would sync the host inside the "
+                               f"capture of the update program {key}; unset it")
         statics = None if inputs is None else tree_map(
             lambda x: torch.empty(tuple(x.shape), dtype=_as_tensor(x).dtype, device=self.device), inputs)
         graph = torch.cuda.CUDAGraph()

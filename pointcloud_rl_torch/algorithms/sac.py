@@ -38,9 +38,10 @@ metric vectors summed; a host replay, a recurrent model or ``obs_rms`` take
 ``n`` lazy updates), ``update_parameters`` (a lazy update whose metrics are
 fetched) and the act-fused updates (``set_fused_updates``: each explore
 ``forward_async`` of the next collection takes a chunk of updates, then
-acts, in one program).  On a card outside a process group each program is
-a captured CUDA graph of the eager step (``algorithms/graphs.py``); on the
-CPU, and on a rank of a process group, the eager step runs.
+acts, in one program).  On a card each program is a captured CUDA graph of
+the eager step (``algorithms/graphs.py``), on an NCCL rank with its
+gradient all-reduces inside; on the CPU, and on a gloo rank (whose
+collectives run on the host), the eager step runs.
 """
 
 from __future__ import annotations
@@ -248,16 +249,19 @@ class SAC(BaseAgent):
         for tx in (self.critic_tx, self.actor_tx, self.alpha_tx):
             tx.data_parallel = dp
         self.act_generator = torch.Generator(device=self.device).manual_seed(self.seed + 1)
-        self._drop_programs()
+        self.drop_programs()
 
     # --------------------------------------------------- update programs
     def _graphed(self) -> bool:
         """Whether the update programs are captured CUDA graphs: on a card,
-        outside a process group (a gloo collective cannot be captured, and
-        NCCL's capture is not ported)."""
-        return self.device.type == "cuda" and not self.data_parallel.distributed
+        where the data-parallel collectives can be captured (none outside a
+        process group, NCCL's; not gloo's, which run on the host)."""
+        return self.device.type == "cuda" and self.data_parallel.capturable
 
-    def _drop_programs(self) -> None:
+    def drop_programs(self) -> None:
+        """Free the captured update programs (their CUDA graphs and pool).
+        An NCCL rank does so before its process group is destroyed: NCCL
+        frees a communicator only once no graph holds its collectives."""
         if self._programs is not None:
             self._programs.invalidate()
 
@@ -340,16 +344,18 @@ class SAC(BaseAgent):
         return metrics
 
     # ------------------------------------------------ act-fused updates
-    def set_fused_updates(self, memory, chunk: int, budget: int) -> bool:
+    def set_fused_updates(self, memory, chunk: int, budget: int, announce=None) -> bool:
         """Arm act-fused updates for the next collection: each explore
         ``forward_async`` takes ``chunk`` gradient steps, then acts with the
         stepped parameters, in one program, until ``budget`` updates have
-        run.  Returns False (not armed) where the storage programs do not
-        apply (a host replay, a recurrent model, ``obs_rms``) or the replay
-        is empty."""
+        run; ``announce(chunk)`` (a host lead's ``announce_updates``) is
+        called before each such program.  Returns False (not armed) where
+        the storage programs do not apply (a host replay, a recurrent model,
+        ``obs_rms``) or the replay is empty."""
         if not (self._samples_on_device(memory) and len(memory) > 0 and chunk >= 1):
             return False
-        self._fused_plan = {"mem": memory, "chunk": int(chunk), "budget": int(budget), "done": 0}
+        self._fused_plan = {"mem": memory, "chunk": int(chunk), "budget": int(budget), "done": 0,
+                            "announce": announce}
         self._fused_vec_sum = None
         return True
 
@@ -369,6 +375,8 @@ class SAC(BaseAgent):
         chunk, mem = plan["chunk"], plan["mem"]
         if plan["budget"] < chunk:
             return None
+        if plan["announce"] is not None:
+            plan["announce"](chunk)
 
         def body(o):
             with torch.enable_grad():
@@ -593,7 +601,7 @@ class SAC(BaseAgent):
     def load_params(self, state_dict: Dict[str, torch.Tensor]) -> None:
         """Load a ``convert.params_from_jax`` state dict: live networks,
         ``target.*`` and ``log_alpha``.  Optimizer state is left as is."""
-        self._drop_programs()
+        self.drop_programs()
         live = {k: v for k, v in state_dict.items() if not k.startswith("target.") and k != "log_alpha"}
         self.model.load_state_dict(live)
         target = {k[len("target."):]: v for k, v in state_dict.items() if k.startswith("target.")}
@@ -620,7 +628,7 @@ class SAC(BaseAgent):
         }
 
     def load_state_dict(self, state: Dict) -> None:
-        self._drop_programs()  # the optimizers' loaded state replaces the tensors the programs read
+        self.drop_programs()  # the optimizers' loaded state replaces the tensors the programs read
         self.model.load_state_dict(state["model"])
         self.target.load_state_dict(state["target"])
         with torch.no_grad():

@@ -368,7 +368,7 @@ def run(cfg: Config, work_dir: str, seed: int, args, world: int = 1) -> dict:
         eval_num = eval_cfg.get("num", 1)
         evaluator = build_evaluation(eval_cfg)
 
-    exp_logger = replay = expert_replay = None
+    agent = exp_logger = replay = expert_replay = None
     try:
         import torch
 
@@ -468,6 +468,8 @@ def run(cfg: Config, work_dir: str, seed: int, args, world: int = 1) -> dict:
             from ..parallel.distributed import clear_hosts
 
             if dist.is_initialized():
+                if agent is not None and hasattr(agent, "drop_programs"):
+                    agent.drop_programs()  # the graphs that hold NCCL collectives go before the communicator
                 dist.destroy_process_group()
             clear_hosts()
 

@@ -22,11 +22,14 @@ The updates of a cycle take the JAX loop's branches:
 The metric vectors stay on the device, summed, and are fetched and
 averaged once per log interval (``reduce_metric_vecs``): no update waits
 for the host.  On a card each of these programs replays a captured CUDA
-graph (``algorithms/graphs.py``).  A world with more than one rank on a
-host does not interleave: the lead's hook would enter the gradient
-all-reduce while the host's other ranks wait for its pushes.  A rank of a
-process group runs its updates eagerly (no collective is captured), and
-says so once.
+graph (``algorithms/graphs.py``), an NCCL rank's with its gradient
+all-reduces inside; a gloo rank runs its updates eagerly (its collectives
+run on the host) and says so once.  On a host of several ranks the
+interleave runs in lockstep: the host lead announces each chunk it runs
+inside its collection (``LeadRollout.announce_updates``), and each other
+rank's ``ReplicaRollout`` makes the pushes made so far and runs the same
+chunk, so every rank samples the buffer as it stood before the cycle's
+push, and every rank counts the updates it ran for the remainder.
 
 ``stall_timeout`` arms the stall watchdog (``utils/watchdog.py``): with no
 loop progress for that many seconds, the run appends to
@@ -59,7 +62,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-from ..parallel.distributed import allreduce_stats, host_ranks, is_host_lead, mean_over_hosts
+from ..parallel.distributed import allreduce_stats, is_host_lead, mean_over_hosts
+from ..parallel.mesh import ReplicaRollout
 from ..utils.checkpoint import save_checkpoint
 from ..utils.logger import get_logger
 from ..utils.process import get_total_memory_mb
@@ -143,11 +147,11 @@ def train_rl(
         metric_counts: Dict[str, int] = defaultdict(int)
         time_sums: Dict[str, float] = defaultdict(float)
         vec_sum, vec_count = None, 0  # the updates' metric vectors, summed on the device
-        shared_host = len(host_ranks()) > 1
-        said_no_interleave = False
-        if getattr(getattr(agent, "device", None), "type", None) == "cuda" and agent.data_parallel.distributed:
-            logger.info("Updates run eagerly, not as CUDA graphs: this rank is in a process group, and its "
-                        "collectives are not captured")
+        follower = isinstance(rollout, ReplicaRollout)  # runs the chunks its host lead announces
+        announce = getattr(rollout, "announce_updates", None)  # a host lead's
+        if getattr(getattr(agent, "device", None), "type", None) == "cuda" and not agent.data_parallel.capturable:
+            logger.info("Updates run eagerly, not as CUDA graphs: this rank's collectives go through gloo, on the "
+                        "host, and a CUDA graph cannot capture them")
 
         # SIGTERM finishes the current cycle, then saves a numbered checkpoint
         # (model_final alone would auto-resume at step 0).
@@ -212,33 +216,34 @@ def train_rl(
                 and type(replay).__name__ == "DeviceReplayMemory" and len(replay) > 0
                 and n_steps % rollout.num_envs == 0
             )
-            if can_interleave and shared_host:
-                if not said_no_interleave:
-                    logger.info(f"Updates run after each collection, not interleaved with it: this host has "
-                                f"{len(host_ranks())} ranks, and its lead's updates would enter the gradient "
-                                "all-reduce while the other ranks wait for its pushes")
-                    said_no_interleave = True
-                can_interleave = False
             if can_interleave:
                 events = max((n_steps // rollout.num_envs) * rollout.pipeline_groups, 1)
                 chunk = max(1, n_updates // events)
-                fused_active = (act_fused_updates and hasattr(agent, "set_fused_updates")
-                                and agent.set_fused_updates(replay, chunk, n_updates))
-            if can_interleave and not fused_active:
+                fused_active = (not follower and act_fused_updates and hasattr(agent, "set_fused_updates")
+                                and agent.set_fused_updates(replay, chunk, n_updates, announce=announce))
 
-                def update_hook():
+                def run_chunk(n):
                     nonlocal vec_sum, vec_count, total_updates, updates_dispatched, hook_s
-                    if updates_dispatched + chunk > n_updates:
-                        return
                     t0 = time.monotonic()
                     agent.train()
-                    vec = agent.update_parameters_scan(replay, chunk)
+                    vec = agent.update_parameters_scan(replay, n)
                     agent.eval()  # the rollout acts next
                     hook_s += time.monotonic() - t0
                     vec_sum = vec if vec_sum is None else vec_sum + vec
-                    vec_count += chunk
-                    total_updates += chunk
-                    updates_dispatched += chunk
+                    vec_count += n
+                    total_updates += n
+                    updates_dispatched += n
+
+                if follower:  # when, and how many: the host lead says
+                    update_hook = run_chunk
+                elif not fused_active:
+
+                    def update_hook():
+                        if updates_dispatched + chunk > n_updates:
+                            return
+                        if announce is not None:
+                            announce(chunk)
+                        run_chunk(chunk)
 
             if n_steps > 0 and rollout is not None:
                 agent.eval()

@@ -20,8 +20,8 @@ up to the order of the gradient sums.
 
 One rank per host collects: the host lead's rollout pushes into its
 replay, and each collection's pushes are broadcast to the other ranks of
-its host in one collective, and they make the same pushes into their
-replicas (``replicate_rollout``).  On one host (``run_rl --num-devices``)
+its host, and they make the same pushes into their replicas
+(``replicate_rollout``).  On one host (``run_rl --num-devices``)
 that is rank 0 for every rank.  Across hosts (``distributed.setup_hosts``)
 each host collects into its own replicas, as each of the JAX package's
 processes does: rank r of N then trains on rows ``[r*B/N, (r+1)*B/N)`` of
@@ -34,14 +34,24 @@ package's replicated storage does.  While the lead collects, evaluates or
 saves, the other ranks wait in their next collective
 (``distributed.COLLECTIVE_TIMEOUT``).
 
+Updates interleaved with the collection run in lockstep: before each
+chunk of updates the lead runs inside its collection, it tells its host
+"the pushes so far, then n updates", and each other rank of the host
+makes those pushes and runs the same n updates on its replica, so every
+rank's chunk samples the buffer the lead's samples, and their gradient
+all-reduces pair up.
+
 An agent that is no rank of a world holds ``DataParallel()``, a world of
-one without a process group, where every method is the identity.
+one without a process group, where every method is the identity.  The
+collectives of an NCCL rank are kernels on the card, which a CUDA graph
+captures (``capturable``; ``algorithms/graphs.py``): neither the gradient
+all-reduce nor the metric reduce reads anything from the host.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,10 +72,19 @@ class DataParallel:
 
     def __init__(self, rank: int = 0, size: int = 1, distributed: bool = False):
         self.rank, self.size, self.distributed = rank, size, distributed
+        self._masks: Dict[Tuple, torch.Tensor] = {}  # reduce_metrics' max-or-mean masks, per device and key set
 
     @property
     def is_lead(self) -> bool:
         return self.rank == 0
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can capture this rank's collectives: outside
+        a process group (there are none) and over NCCL, whose collectives are
+        kernels on the card; not over gloo, whose collectives run on the
+        host."""
+        return not self.distributed or dist.get_backend() == "nccl"
 
     # ------------------------------------------------------------- batches
     def shard(self, batch: Dict[str, Any]) -> Dict[str, Any]:
@@ -113,8 +132,16 @@ class DataParallel:
         rows = torch.zeros((self.size,) + tuple(values.shape), dtype=torch.float32, device=values.device)
         rows[self.rank] = values.float()
         dist.all_reduce(rows)
-        mask = torch.as_tensor(list(maxed), device=values.device)
-        return torch.where(mask, rows.max(dim=0).values, rows.mean(dim=0))
+        return torch.where(self._mask(values.device, maxed), rows.max(dim=0).values, rows.mean(dim=0))
+
+    def _mask(self, device: torch.device, maxed: Sequence[bool]) -> torch.Tensor:
+        """``maxed`` as a bool tensor on ``device``, uploaded at its first use
+        (an update program's eager run) and kept: a capture may not copy from
+        the host."""
+        key = (device, tuple(bool(m) for m in maxed))
+        if key not in self._masks:
+            self._masks[key] = torch.as_tensor(key[1], dtype=torch.bool, device=device)
+        return self._masks[key]
 
 
 def setup_data_parallel(agent, world: int, replay=None) -> DataParallel:
@@ -174,12 +201,15 @@ class _PushRecorder:
 
 
 class LeadRollout:
-    """A host lead's rollout: collects as usual, then broadcasts the pushes
-    to the other ranks of its host."""
+    """A host lead's rollout: collects as usual and sends its host what the
+    other ranks must do, in order: the pushes made before each chunk of
+    updates it runs inside the collection (``announce_updates``), then the
+    rest of the pushes."""
 
     def __init__(self, rollout):
         self.rollout = rollout
-        host_broadcast(rollout.num_envs)
+        self._recorder, self._broadcast_s = None, 0.0
+        host_broadcast((rollout.num_envs, rollout.pipeline_groups))
 
     def __getattr__(self, name):
         return getattr(self.rollout, name)
@@ -192,27 +222,54 @@ class LeadRollout:
     def episode_stats(self, value):
         self.rollout.episode_stats = value
 
-    def forward_with_policy(self, pi, num: int, replay=None, **kwargs) -> Dict[str, Any]:
-        recorder = _PushRecorder(replay) if replay is not None else None
-        out = self.rollout.forward_with_policy(pi, num, recorder, **kwargs) or {}
+    def _send(self, n) -> None:
+        """Broadcast (the pushes recorded since the last message, ``n``)."""
+        calls = []
+        if self._recorder is not None:
+            calls, self._recorder.calls = self._recorder.calls, []
         t0 = time.monotonic()
-        host_broadcast(recorder.calls if recorder is not None else [])
-        out.setdefault("_stats", {})["broadcast_time"] = time.monotonic() - t0
+        host_broadcast((calls, n))
+        self._broadcast_s += time.monotonic() - t0
+
+    def announce_updates(self, n: int) -> None:
+        """Call just before running ``n`` updates inside a collection: the
+        host's other ranks make the pushes so far and run ``n`` updates too."""
+        self._send(n)
+
+    def forward_with_policy(self, pi, num: int, replay=None, **kwargs) -> Dict[str, Any]:
+        self._recorder = _PushRecorder(replay) if replay is not None else None
+        self._broadcast_s = 0.0
+        out = self.rollout.forward_with_policy(pi, num, self._recorder, **kwargs) or {}
+        self._send(None)
+        self._recorder = None
+        out.setdefault("_stats", {})["broadcast_time"] = self._broadcast_s
         return out
 
 
 class ReplicaRollout:
-    """Another rank's rollout: makes its host lead's pushes into its replica."""
+    """Another rank's rollout: follows its host lead's collection, making
+    the lead's pushes into its replica and running ``update_hook(n)`` where
+    the lead ran ``n`` updates."""
 
     def __init__(self):
-        self.num_envs = host_broadcast(None)
+        self.num_envs, self.pipeline_groups = host_broadcast(None)
         self.episode_stats = EpisodicStatistics(self.num_envs)  # stays empty: the host lead's rollout collects
 
-    def forward_with_policy(self, pi, num: int, replay=None, **kwargs) -> Dict[str, Any]:
-        t0 = time.monotonic()
-        for name, args, kw in host_broadcast(None):
-            getattr(replay, name)(*args, **kw)
-        return {"_stats": {"broadcast_time": time.monotonic() - t0}}
+    def forward_with_policy(self, pi, num: int, replay=None, update_hook=None, **kwargs) -> Dict[str, Any]:
+        t0, updates_s = time.monotonic(), 0.0
+        while True:
+            calls, n = host_broadcast(None)
+            for name, args, kw in calls:
+                getattr(replay, name)(*args, **kw)
+            if n is None:
+                break
+            if update_hook is None:
+                raise RuntimeError(f"the host lead ran {n} updates inside its collection, and this rank has no "
+                                   "update hook to follow it")
+            t1 = time.monotonic()
+            update_hook(n)
+            updates_s += time.monotonic() - t1
+        return {"_stats": {"broadcast_time": time.monotonic() - t0 - updates_s}}
 
     def close(self) -> None:
         pass

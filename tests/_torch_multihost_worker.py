@@ -74,6 +74,7 @@ class StubRollout:
     """A host lead's collection: seeded transitions pushed as a rollout pushes them."""
 
     num_envs = 1
+    pipeline_groups = 1
 
     def __init__(self, seed):
         self.data = transitions(PUSHES, seed=seed)

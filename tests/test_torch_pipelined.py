@@ -12,8 +12,9 @@ previous step's obs.  (iii) The interleaved updates: a recording stub
 agent and a stub replay named ``DeviceReplayMemory`` go through both
 packages' ``train_rl``, which must make the same ``update_parameters_scan``
 calls, in the same order between the same act dispatches, and the same
-remainder flush; a world of 2 gloo ranks on one host does not interleave,
-and its run finishes.
+remainder flush; in a world of 2 gloo ranks on one host (``run_rl
+--num-devices 2``) each rank makes the JAX loop's scans, the ranks in
+lockstep, and ends with the other's parameters.
 """
 
 import copy
@@ -345,20 +346,37 @@ def test_interleave_schedule_is_the_jax_loops(groups, lag, n_updates, tmp_path):
         assert [e for e in t_events if e[0] != "act"] == [("update", 16 + 8 * c) for c in range(3)]
 
 
-def test_two_ranks_on_a_host_do_not_interleave_and_finish(tmp_path):
-    """``run_rl --num-devices 2`` (gloo, one host) on a device replay with
-    4 updates per cycle: the updates run after each collection, the log
-    says so once, and the run ends."""
-    wd = tmp_path / "wd"
-    cmd = [sys.executable, "-m", "pointcloud_rl_torch.apis.run_rl", SLICE_CONFIG, "--work-dir", str(wd),
+def test_two_ranks_on_a_host_interleave_as_the_jax_loop(tmp_path):
+    """``run_rl --num-devices 2`` (gloo, one host) on a device replay, 4
+    envs in 2 groups, 6 updates per cycle of 8 env steps: each rank runs
+    the JAX loop's scans (a chunk of 1 after each of the 4 act dispatches,
+    on the buffer before the cycle's push, then the remainder of 2), the
+    host's other rank in lockstep with its lead, and the two ranks end with
+    bitwise equal parameters."""
+    wd, out_dir = tmp_path / "wd", tmp_path / "ranks"
+    out_dir.mkdir()
+    cmd = [sys.executable, osp.join(REPO, "tests", "_torch_spawned_ranks.py"), SLICE_CONFIG, "--work-dir", str(wd),
            "--seed", "0", "--device", "cpu", "--cfg-options", *TINY_CLI,
            "agent_cfg.actor_cfg.nn_cfg.visual_nn_cfg.fused=True", "replay_cfg.type=DeviceReplayMemory",
-           "replay_cfg.capacity=200", "train_cfg.total_steps=40", "train_cfg.warm_steps=16", "train_cfg.n_steps=8",
-           "train_cfg.n_updates=4", "train_cfg.n_log=16", "train_cfg.exp_logger_cfg.type=csv",
-           "rollout_cfg.num_procs=2", "eval_cfg.num_procs=1", "--num-devices", "2"]
+           "replay_cfg.capacity=200", "train_cfg.total_steps=32", "train_cfg.warm_steps=8", "train_cfg.n_steps=8",
+           "train_cfg.n_updates=6", "train_cfg.n_log=16", "train_cfg.exp_logger_cfg.type=csv",
+           f"rollout_cfg.num_procs={ENVS}", "rollout_cfg.pipeline_groups=2", "eval_cfg.num_procs=1",
+           "--num-devices", "2"]
     out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300,
-                         env=dict(os.environ, OMP_NUM_THREADS="1"))
+                         env=dict(os.environ, OMP_NUM_THREADS="1", PCRL_RANKS_OUT=str(out_dir)))
     assert out.returncode == 0, out.stderr[-3000:]
-    log = out.stdout + out.stderr
-    assert log.count("not interleaved with it: this host has 2 ranks") == 1, log[-3000:]
+    assert "not interleaved" not in out.stdout + out.stderr
     assert osp.isfile(wd / "0" / "models" / "model_final")
+    j_scans = [e for e in _interleave_events("jax", 2, 0, 6, tmp_path) if e[0] == "scan"]
+    want = []
+    for c in range(3):  # 4 chunks of 1 on the buffer before the cycle's push, then the remainder after it
+        want += [("scan", 8 + 8 * c, 1)] * 4 + [("scan", 16 + 8 * c, 2)]
+    assert j_scans == want
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in (0, 1)]
+    for r, res in enumerate(ranks):
+        assert res["scans"] == j_scans, (r, res["scans"], j_scans)
+        assert res["updates"] == res["grad_steps"] == 18
+    for part in ("model", "target"):
+        for k, v in ranks[0][part].items():
+            assert torch.equal(v, ranks[1][part][k]), f"{part}.{k}"
+    assert torch.equal(ranks[0]["log_alpha"], ranks[1]["log_alpha"])

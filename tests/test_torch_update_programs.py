@@ -268,7 +268,7 @@ class _ProgramAgent:
         self.events.append(("update", len(memory)))
         return {"x": 1.0}
 
-    def set_fused_updates(self, memory, chunk, budget):
+    def set_fused_updates(self, memory, chunk, budget, announce=None):
         self.events.append(("arm", len(memory), chunk, budget))
         self.plan = {"mem": memory, "chunk": chunk, "budget": budget, "done": 0}
         return True

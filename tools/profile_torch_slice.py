@@ -291,7 +291,7 @@ def main() -> int:
         tf32 = None
         if visual["type"] in ("SparseCNN", "VoxelCNN", "NatureCNN", "DMCEncoder", "IMPALA"):  # convolutions
             conv_ops.ALLOW_TF32 = True
-            agent._drop_programs()  # the captured updates hold the f32 convolutions
+            agent.drop_programs()  # the captured updates hold the f32 convolutions
             try:
                 for i in range(5):
                     agent.update_parameters(replay, first + 2 * args.updates + i)
