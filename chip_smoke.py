@@ -3546,8 +3546,9 @@ def graph_timing(fn_eager, fn_graphed, n: int, acts) -> dict:
 
 def program_stats(agent) -> dict:
     stats = agent._programs.stats()
-    return {"programs": stats, "capture_ms": {k: v["capture_ms"] for k, v in stats.items()},
-            "pool_mb": sum(v["pool_bytes"] for v in stats.values()) / 2**20}
+    progs = stats["programs"]
+    return {"programs": stats, "capture_ms": {k: v["capture_ms"] for k, v in progs.items()},
+            "pool_mb": sum(v["pool_bytes"] for v in progs.values()) / 2**20}
 
 
 def graphs_storage(pf, name: str, config: str, card: str, acts, ranks: bool = False) -> dict:

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import DataParallel
+from ..utils.trace import ACT_DISPATCH, ACT_WAIT, span
 
 
 def example_obs_from_shape(obs_shape, batch: int = 1):
@@ -83,9 +84,10 @@ class ActionHandle:
         return self._event is None or self._event.query()
 
     def __array__(self, dtype=None, copy=None):
-        if self._event is not None:
-            self._event.synchronize()
-            self._event = None
+        with span(ACT_WAIT):
+            if self._event is not None:
+                self._event.synchronize()
+                self._event = None
         return self._host if dtype is None else self._host.astype(dtype, copy=False)
 
 
@@ -169,7 +171,6 @@ class BaseAgent:
     def act(self, obs, mode: str) -> torch.Tensor:
         raise NotImplementedError
 
-    @torch.no_grad()
     def forward_async(self, obs, mode: str = "explore", **kwargs) -> "ActionHandle":
         """Dispatch the act without waiting for its actions (the JAX
         package's ``forward_async``): the obs go up through ``_upload_obs``,
@@ -181,20 +182,21 @@ class BaseAgent:
         With act-fused updates armed (``SAC.set_fused_updates``), an explore
         act of a feed-forward agent takes the plan's chunk of updates first,
         in the same program (``_fused_act_dispatch``)."""
-        obs = self._host_obs(obs)
-        actions = None
-        model = getattr(self, "model", None)
-        if mode == "explore" and self._fused_plan is not None and not (model is not None and model.is_recurrent):
-            actions = self._fused_act_dispatch(obs)
-        if actions is None:
-            actions = self.act(self._device_obs(to_torch(obs, self.device)), mode)
-        if actions.device.type == "cpu":
-            return ActionHandle(actions.numpy())
-        host = torch.empty(actions.shape, dtype=actions.dtype, pin_memory=True)
-        host.copy_(actions, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(actions.device))
-        return ActionHandle(host.numpy(), event)
+        with span(ACT_DISPATCH), torch.no_grad():  # the span opens first, as the call starts
+            obs = self._host_obs(obs)
+            actions = None
+            model = getattr(self, "model", None)
+            if mode == "explore" and self._fused_plan is not None and not (model is not None and model.is_recurrent):
+                actions = self._fused_act_dispatch(obs)
+            if actions is None:
+                actions = self.act(self._device_obs(to_torch(obs, self.device)), mode)
+            if actions.device.type == "cpu":
+                return ActionHandle(actions.numpy())
+            host = torch.empty(actions.shape, dtype=actions.dtype, pin_memory=True)
+            host.copy_(actions, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(actions.device))
+            return ActionHandle(host.numpy(), event)
 
     def forward(self, obs, mode: str = "explore", **kwargs) -> np.ndarray:
         """obs (numpy tree, batched) -> actions (numpy [B, A])."""

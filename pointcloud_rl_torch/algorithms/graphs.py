@@ -38,6 +38,15 @@ programs are dropped (``invalidate``) when the tensors they read are
 replaced: the agent's ``load_state_dict`` and ``load_params``, and a move
 of the replay's storage (``storage_version``).
 
+A call opens the spans of ``utils/trace.py`` around its host work, never
+inside the body: ``graphs.eager`` (the eager first run), ``graphs.capture``,
+``graphs.upload`` (host inputs into the static inputs; a copy from pageable
+memory waits for the stream first) and ``graphs.replay`` (the replay and
+the clones of its outputs).  ``eager_runs``, ``captures`` and
+``invalidations`` count the rebuilds, beside each program's ``replays``:
+after the first two calls of each key they stay put, unless a key changes
+from call to call.
+
 On an NCCL rank of a data-parallel world (``parallel/mesh.py``) a program
 holds the update's collectives, the gradient all-reduce of each optimizer
 step and the metric reduce, as the JAX package's programs over a mesh
@@ -78,6 +87,7 @@ import numpy as np
 import torch
 
 from ..ops import pointnet_fused
+from ..utils.trace import GRAPHS_CAPTURE, GRAPHS_EAGER, GRAPHS_REPLAY, GRAPHS_UPLOAD, span
 from ..utils.tree_ops import tree_map
 
 
@@ -119,19 +129,25 @@ class UpdatePrograms:
         self.pool = None
         self.memory = None  # the replay the storage programs read, and its storage version
         self.version = None
+        # rebuilds: eager first runs and captures, and the invalidations that made them run again
+        self.eager_runs = self.captures = self.invalidations = 0
 
     def invalidate(self) -> None:
         """Drop every program (their graphs and memory)."""
+        if self.seen:
+            self.invalidations += 1
         self.programs.clear()
         self.seen.clear()
         self.pool = None
         self.memory = self.version = None
 
     def stats(self) -> Dict[str, Any]:
-        """Per program: capture ms, replays, kernels it adds to the launch
-        counts, bytes its capture added to the pool."""
-        return {repr(k): {"capture_ms": p.capture_ms, "replays": p.replays, "launches": p.launches,
-                          "pool_bytes": p.pool_bytes} for k, p in self.programs.items()}
+        """The eager first runs, captures and invalidations so far, and per
+        program: capture ms, replays, kernels it adds to the launch counts,
+        bytes its capture added to the pool."""
+        return {"eager_runs": self.eager_runs, "captures": self.captures, "invalidations": self.invalidations,
+                "programs": {repr(k): {"capture_ms": p.capture_ms, "replays": p.replays, "launches": p.launches,
+                                       "pool_bytes": p.pool_bytes} for k, p in self.programs.items()}}
 
     def _to_device(self, tree):
         return None if tree is None else tree_map(lambda x: _as_tensor(x).to(self.device), tree)
@@ -146,23 +162,29 @@ class UpdatePrograms:
             self.stream = torch.cuda.Stream(self.device)
         current = torch.cuda.current_stream(self.device)
         if key not in self.seen:  # the eager first run, on the capture stream
-            self.stream.wait_stream(current)
-            with torch.cuda.stream(self.stream):
-                out = body(self._to_device(inputs))
-            current.wait_stream(self.stream)
+            with span(GRAPHS_EAGER):
+                self.stream.wait_stream(current)
+                with torch.cuda.stream(self.stream):
+                    out = body(self._to_device(inputs))
+                current.wait_stream(self.stream)
             self.seen.add(key)
+            self.eager_runs += 1
             return out
         prog = self.programs.get(key)
         if prog is None:
-            prog = self.programs[key] = self._capture(key, body, inputs, generators)
+            with span(GRAPHS_CAPTURE):
+                prog = self.programs[key] = self._capture(key, body, inputs, generators)
+            self.captures += 1
         if inputs is not None:
-            tree_map(lambda dst, src: dst.copy_(_as_tensor(src)), prog.inputs, inputs)
-        prog.graph.replay()
-        prog.replays += 1
-        self.agent.updates += n
-        for name, count in prog.launches.items():
-            pointnet_fused.launch_counts[name] += count
-        return tuple(o.clone() for o in prog.outputs)
+            with span(GRAPHS_UPLOAD):
+                tree_map(lambda dst, src: dst.copy_(_as_tensor(src)), prog.inputs, inputs)
+        with span(GRAPHS_REPLAY):
+            prog.graph.replay()
+            prog.replays += 1
+            self.agent.updates += n
+            for name, count in prog.launches.items():
+                pointnet_fused.launch_counts[name] += count
+            return tuple(o.clone() for o in prog.outputs)
 
     def _capture(self, key: Tuple, body: Callable, inputs, generators: Sequence) -> _Program:
         agent = self.agent

@@ -56,6 +56,7 @@ from ..models import build_actor_critic
 from ..models.builder import extract_freeze_param_cfg
 from ..ops.augment import build_data_augmentations
 from ..utils.stats import RunningMeanStd
+from ..utils.trace import SAC_UPDATE, span
 from ..utils.tree_ops import tree_map
 from . import MFRL
 from .base import BaseAgent, to_torch
@@ -290,11 +291,12 @@ class SAC(BaseAgent):
         ``_metric_keys``, without waiting for it.  A device replay is
         sampled inside the program; a host batch (a recurrent model's
         windows, ``obs_rms`` applied) is sampled here and copied into it."""
-        if self._samples_on_device(memory):
-            return self._program("storage", 1, lambda _: (self._update_vec(memory),), memory=memory)[0]
-        batch = self._host_batch(self._sample(memory))
-        return self._program("batch", 1, lambda b: (self._batch_update_vec(self._complete_batch(b)),),
-                             inputs=batch)[0]
+        with span(SAC_UPDATE):
+            if self._samples_on_device(memory):
+                return self._program("storage", 1, lambda _: (self._update_vec(memory),), memory=memory)[0]
+            batch = self._host_batch(self._sample(memory))
+            return self._program("batch", 1, lambda b: (self._batch_update_vec(self._complete_batch(b)),),
+                                 inputs=batch)[0]
 
     def update_parameters(self, memory, updates: int) -> Dict[str, float]:
         """One gradient step on a batch sampled from ``memory`` (a host or a
@@ -327,7 +329,8 @@ class SAC(BaseAgent):
                 vec = self.update_parameters_lazy(memory, i)
                 total = vec if total is None else total + vec
             return total
-        return self._program("storage", n, lambda _: (self._update_vecs(memory, n),), memory=memory)[0]
+        with span(SAC_UPDATE):
+            return self._program("storage", n, lambda _: (self._update_vecs(memory, n),), memory=memory)[0]
 
     def reduce_metric_vecs(self, vec_sum: torch.Tensor, count: int) -> Dict[str, float]:
         """Average summed metric vectors (one device fetch); the actor's

@@ -29,7 +29,8 @@ broadcasts its pushes to its host's ranks.  Rank 0 alone evaluates and
 writes.  A resume reads ``<work_dir>/models``, so the work dir must be on a
 filesystem every host sees: a rank that does not see the replay snapshot
 starts with an empty replay.  ``--profile N`` traces the first N env steps
-after the warm-up into ``<work_dir>/profile``.
+after the warm-up into ``<work_dir>/profile``: the kernels and the port's
+spans (``utils/trace.py``; ``train_rl`` names them).
 
 ``--device cuda`` (the default) raises when no GPU is visible: nothing
 moves to the CPU on its own.  The rollout and the evaluator (whose env
@@ -42,7 +43,9 @@ writes ``run_summary.json`` into the work dir: the device, step counts,
 throughput over the main loop, the replay (type, device, bytes of storage;
 ``replay_restored``: the transitions a resume restored from the
 ``train_cfg.save_replay`` snapshot ``models/replay_latest.h5``),
-the fused-PointNet kernel launches of the process, evaluation results, and
+the fused-PointNet kernel launches of the process, the update programs'
+counters (``programs``: eager first runs, captures, invalidations, and
+each program's replays; ``algorithms/graphs.py``), evaluation results, and
 the ``pointcloud_rl_tpu`` and ``jax`` modules loaded in the process
 (none: the port stands alone).
 """
@@ -91,8 +94,10 @@ def parse_args(args=None):
                         help="require a clean git tree and record the commit")
     parser.add_argument("--clean-up", action="store_true", help="remove the work dir after finishing")
     parser.add_argument("--profile", type=int, default=0, metavar="N",
-                        help="torch.profiler trace of the first N env steps after the warm-up, "
-                             "in <work_dir>/profile")
+                        help="torch.profiler trace of the first N env steps after the warm-up, in "
+                             "<work_dir>/profile/trace.json: the kernels and the port's spans (train.cycle, "
+                             "train.updates, sac.update, replay.sample, graphs.*, rollout.collect, forward_async.*, "
+                             "obs_fuse, rollout.env_wait, rollout.push; utils/trace.py)")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="device of the agent (default cuda; raises when no GPU is visible)")
     return parser.parse_args(args)
@@ -444,6 +449,8 @@ def run(cfg: Config, work_dir: str, seed: int, args, world: int = 1) -> dict:
             torch.cuda.synchronize(device)
         summary["replay"] = replay_summary(replay)
         summary["launches"] = dict(pointnet_fused.launch_counts)
+        programs = getattr(agent, "_programs", None)  # none where the updates run eagerly
+        summary["programs"] = programs.stats() if programs is not None else None
         summary["pointcloud_rl_tpu_modules"] = sorted(
             m for m in sys.modules if m.split(".")[0] == "pointcloud_rl_tpu")
         summary["jax_modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))

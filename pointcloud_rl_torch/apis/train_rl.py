@@ -5,7 +5,19 @@ until total_steps, with episode statistics, periodic logging, evaluation,
 checkpoints every n_checkpoint steps as ``models/model_<step>`` plus
 ``model_final``, and a numbered checkpoint on SIGTERM.  ``profile_steps``
 traces the first that many env steps of the main loop with
-``torch.profiler`` into ``<work_dir>/profile``.
+``torch.profiler`` into ``<work_dir>/profile``: beside the kernels the
+trace holds the port's spans (``utils/trace.py``), ``train.cycle`` for
+each turn of the loop, and inside it ``train.updates`` (each update
+dispatch), ``sac.update``, ``replay.sample``, ``graphs.upload``,
+``graphs.replay``, ``graphs.eager`` and ``graphs.capture`` (the update
+programs), ``rollout.collect`` (a collection), ``forward_async.dispatch``
+and ``forward_async.wait`` (the act), ``obs_fuse``, ``rollout.env_wait``
+and ``rollout.push``.
+
+The logged ``update_time`` is the update dispatches' device seconds on a
+card (a pair of CUDA events around each ``train.updates``, read at log
+time once the metrics' fetch has passed them), their host seconds on the
+CPU; act-fused updates run inside the act and count in ``agent_time``.
 
 The updates of a cycle take the JAX loop's branches:
 - interleaved with collection: with a ``DeviceReplayMemory``,
@@ -69,6 +81,7 @@ from ..utils.logger import get_logger
 from ..utils.process import get_total_memory_mb
 from ..utils.stats import EpisodicStatistics, EveryNSteps
 from ..utils.timer import format_eta
+from ..utils.trace import TRAIN_CYCLE, TRAIN_UPDATES, StreamClock, span
 from ..utils.tree_ops import dict_to_str
 
 
@@ -147,6 +160,7 @@ def train_rl(
         metric_counts: Dict[str, int] = defaultdict(int)
         time_sums: Dict[str, float] = defaultdict(float)
         vec_sum, vec_count = None, 0  # the updates' metric vectors, summed on the device
+        update_clock = StreamClock(getattr(agent, "device", "cpu"))  # the updates' seconds, on the card's clock
         follower = isinstance(rollout, ReplicaRollout)  # runs the chunks its host lead announces
         announce = getattr(rollout, "announce_updates", None)  # a host lead's
         if getattr(getattr(agent, "device", None), "type", None) == "cuda" and not agent.data_parallel.capturable:
@@ -194,173 +208,179 @@ def train_rl(
 
         begin_time = time.monotonic()
         begin_steps = steps
+        cycle = 0
         while steps < total_steps and not stop_agreed():
-            if watchdog is not None:
-                watchdog.pet()
-            iter_t0 = time.monotonic()
-            if on_policy and replay is not None:
-                replay.reset()
-                if rollout is not None:
-                    rollout.episode_stats.reset_current()
+            with span(TRAIN_CYCLE, str(cycle)):
+                if watchdog is not None:
+                    watchdog.pet()
+                iter_t0 = time.monotonic()
+                if on_policy and replay is not None:
+                    replay.reset()
+                    if rollout is not None:
+                        rollout.episode_stats.reset_current()
 
-            # Interleaved updates (the JAX loop's update_hook): a chunk after
-            # each act dispatch of the collection, sampling the buffer as it
-            # stood before this cycle's push; the remainder after it.
-            updates_dispatched = 0
-            update_hook = None
-            fused_active = False
-            hook_s = 0.0
-            can_interleave = (
-                n_steps > 0 and n_updates > 1 and rollout is not None and replay is not None
-                and hasattr(agent, "update_parameters_scan")
-                and type(replay).__name__ == "DeviceReplayMemory" and len(replay) > 0
-                and n_steps % rollout.num_envs == 0
-            )
-            if can_interleave:
-                events = max((n_steps // rollout.num_envs) * rollout.pipeline_groups, 1)
-                chunk = max(1, n_updates // events)
-                fused_active = (not follower and act_fused_updates and hasattr(agent, "set_fused_updates")
-                                and agent.set_fused_updates(replay, chunk, n_updates, announce=announce))
+                # Interleaved updates (the JAX loop's update_hook): a chunk after
+                # each act dispatch of the collection, sampling the buffer as it
+                # stood before this cycle's push; the remainder after it.
+                updates_dispatched = 0
+                update_hook = None
+                fused_active = False
+                hook_s = 0.0
+                can_interleave = (
+                    n_steps > 0 and n_updates > 1 and rollout is not None and replay is not None
+                    and hasattr(agent, "update_parameters_scan")
+                    and type(replay).__name__ == "DeviceReplayMemory" and len(replay) > 0
+                    and n_steps % rollout.num_envs == 0
+                )
+                if can_interleave:
+                    events = max((n_steps // rollout.num_envs) * rollout.pipeline_groups, 1)
+                    chunk = max(1, n_updates // events)
+                    fused_active = (not follower and act_fused_updates and hasattr(agent, "set_fused_updates")
+                                    and agent.set_fused_updates(replay, chunk, n_updates, announce=announce))
 
-                def run_chunk(n):
-                    nonlocal vec_sum, vec_count, total_updates, updates_dispatched, hook_s
-                    t0 = time.monotonic()
-                    agent.train()
-                    vec = agent.update_parameters_scan(replay, n)
-                    agent.eval()  # the rollout acts next
-                    hook_s += time.monotonic() - t0
-                    vec_sum = vec if vec_sum is None else vec_sum + vec
-                    vec_count += n
-                    total_updates += n
-                    updates_dispatched += n
+                    def run_chunk(n):
+                        nonlocal vec_sum, vec_count, total_updates, updates_dispatched, hook_s
+                        t0 = time.monotonic()
+                        with span(TRAIN_UPDATES), update_clock:
+                            agent.train()
+                            vec = agent.update_parameters_scan(replay, n)
+                            agent.eval()  # the rollout acts next
+                        hook_s += time.monotonic() - t0
+                        vec_sum = vec if vec_sum is None else vec_sum + vec
+                        vec_count += n
+                        total_updates += n
+                        updates_dispatched += n
 
-                if follower:  # when, and how many: the host lead says
-                    update_hook = run_chunk
-                elif not fused_active:
+                    if follower:  # when, and how many: the host lead says
+                        update_hook = run_chunk
+                    elif not fused_active:
 
-                    def update_hook():
-                        if updates_dispatched + chunk > n_updates:
-                            return
-                        if announce is not None:
-                            announce(chunk)
-                        run_chunk(chunk)
+                        def update_hook():
+                            if updates_dispatched + chunk > n_updates:
+                                return
+                            if announce is not None:
+                                announce(chunk)
+                            run_chunk(chunk)
 
-            if n_steps > 0 and rollout is not None:
-                agent.eval()
-                out = rollout.forward_with_policy(agent, n_steps, replay, update_hook=update_hook,
-                                                  recent_replay=recent_traj_replay)
-                steps += n_steps
-                if out and "_stats" in out:
-                    for k, v in out["_stats"].items():
-                        if k.endswith("_time"):
-                            time_sums[k] += v
-                time_sums["collect_sample_time"] += time.monotonic() - iter_t0 - hook_s
-                time_sums["update_time"] += hook_s
-            else:
-                steps += 1  # offline mode progresses by update counting
-
-            if fused_active:  # the chunks the explore acts took, summed on the device
-                vec, done = agent.finish_fused_updates()
-                if vec is not None:
-                    vec_sum = vec if vec_sum is None else vec_sum + vec
-                    vec_count += done
-                    total_updates += done
-                updates_dispatched += done
-
-            update_t0 = time.monotonic()
-            agent.train()
-            if update_hook is not None or fused_active:
-                left = n_updates - updates_dispatched
-                if left > 0:  # the remainder the hook or the acts did not cover
-                    vec = agent.update_parameters_scan(replay, left)
-                    vec_sum = vec if vec_sum is None else vec_sum + vec
-                    vec_count += left
-                    total_updates += left
-            elif hasattr(agent, "update_parameters_scan") and n_updates > 1:  # one program per cycle
-                vec = agent.update_parameters_scan(replay, n_updates)
-                vec_sum = vec if vec_sum is None else vec_sum + vec
-                vec_count += n_updates
-                total_updates += n_updates
-            elif hasattr(agent, "update_parameters_lazy"):  # nothing waits for the device until log time
-                for _ in range(n_updates):
-                    total_updates += 1
-                    vec = agent.update_parameters_lazy(replay, total_updates)
-                    vec_sum = vec if vec_sum is None else vec_sum + vec
-                    vec_count += 1
-            else:
-                for _ in range(n_updates):
-                    total_updates += 1
-                    metrics = agent.update_parameters(replay, total_updates)
-                    for k, v in metrics.items():
-                        metric_sums[k] += float(v)
-                        metric_counts[k] += 1
-            time_sums["update_time"] += time.monotonic() - update_t0
-
-            if profiler is not None and steps >= profile_until:
-                _stop_profiler(profiler, work_dir)
-                profiler = None
-                logger.info(f"Profiler trace written to {osp.join(work_dir, 'profile')}")
-
-            # ---- logging ----------------------------------------------------
-            if log_trigger.check(steps):
-                if vec_sum is not None:
-                    avg_metrics = agent.reduce_metric_vecs(vec_sum, vec_count)  # one device fetch
-                    vec_sum, vec_count = None, 0
+                if n_steps > 0 and rollout is not None:
+                    agent.eval()
+                    out = rollout.forward_with_policy(agent, n_steps, replay, update_hook=update_hook,
+                                                      recent_replay=recent_traj_replay)
+                    steps += n_steps
+                    if out and "_stats" in out:
+                        for k, v in out["_stats"].items():
+                            if k.endswith("_time"):
+                                time_sums[k] += v
+                    time_sums["collect_sample_time"] += time.monotonic() - iter_t0 - hook_s
                 else:
-                    avg_metrics = {k: metric_sums[k] / max(metric_counts[k], 1) for k in metric_sums}
-                env_stats = {}
-                if rollout is not None:
-                    if is_host_lead():  # the other ranks' rollouts collect nothing
-                        env_stats = rollout.episode_stats.get_stats()
-                    rollout.episode_stats.reset_history()
-                    # every rank enters: the mean over the hosts' leads
-                    env_stats = mean_over_hosts(env_stats)
-                # the slowest rank's update time
-                time_sums.update(allreduce_stats({"update_time": time_sums["update_time"]}, op="max"))
-                elapsed = time.monotonic() - begin_time
-                rate = (steps - begin_steps) / max(elapsed, 1e-9)
-                eta = format_eta((total_steps - steps) / max(rate, 1e-9))
-                diag = {
-                    "buffer_size": len(replay) if replay is not None else 0,
-                    "total_grad_steps": total_updates,
-                    "samples_per_sec": rate,
-                    "memory_mb": get_total_memory_mb(),
-                    **time_sums,
-                }
-                logger.info(f"{steps}/{total_steps} ({steps / total_steps * 100:.0f}%) ETA {eta} | "
-                            + dict_to_str({**env_stats, **avg_metrics}) + " | " + dict_to_str(diag))
-                if exp_logger is not None:
-                    exp_logger.log({**env_stats, **avg_metrics, **diag}, step=steps, tag="train")
-                metric_sums.clear()
-                metric_counts.clear()
-                time_sums.clear()
-                if recent_traj_replay is not None:
-                    recent_traj_replay.reset()
+                    steps += 1  # offline mode progresses by update counting
 
-            # ---- evaluation -------------------------------------------------
-            if evaluator is not None and eval_trigger.n and eval_trigger.check(steps) and lead:
-                std_step = eval_trigger.standard(steps)
-                agent.eval()
-                if watchdog is not None:
-                    watchdog.pause()
-                lens, rewards, finishes = evaluator.run(agent, num=eval_num,
-                                                        work_dir=f"{work_dir}/eval_{std_step}")
-                if watchdog is not None:
-                    watchdog.resume()
-                if exp_logger is not None:
-                    exp_logger.log({"rewards_mean": float(np.mean(rewards)),
-                                    "lengths_mean": float(np.mean(lens)),
-                                    "success_rate": float(np.mean(finishes))}, step=std_step, tag="test")
+                if fused_active:  # the chunks the explore acts took, summed on the device
+                    vec, done = agent.finish_fused_updates()
+                    if vec is not None:
+                        vec_sum = vec if vec_sum is None else vec_sum + vec
+                        vec_count += done
+                        total_updates += done
+                    updates_dispatched += done
 
-            # ---- checkpoint -------------------------------------------------
-            if ckpt_trigger.n and ckpt_trigger.check(steps) and lead:
-                std_step = ckpt_trigger.standard(steps)
-                path = save_checkpoint(agent.state_dict(), work_dir, std_step)
-                logger.info(f"Saved checkpoint at step {std_step}: {path}")
-                if save_replay > 0 and replay is not None:
-                    t0 = time.monotonic()
-                    n = save_replay_snapshot(replay, save_replay, work_dir)
-                    logger.info(f"Saved replay snapshot ({n} transitions) in {time.monotonic() - t0:.1f} s")
+                agent.train()
+                if update_hook is not None or fused_active:
+                    left = n_updates - updates_dispatched
+                    if left > 0:  # the remainder the hook or the acts did not cover
+                        with span(TRAIN_UPDATES), update_clock:
+                            vec = agent.update_parameters_scan(replay, left)
+                        vec_sum = vec if vec_sum is None else vec_sum + vec
+                        vec_count += left
+                        total_updates += left
+                elif hasattr(agent, "update_parameters_scan") and n_updates > 1:  # one program per cycle
+                    with span(TRAIN_UPDATES), update_clock:
+                        vec = agent.update_parameters_scan(replay, n_updates)
+                    vec_sum = vec if vec_sum is None else vec_sum + vec
+                    vec_count += n_updates
+                    total_updates += n_updates
+                elif hasattr(agent, "update_parameters_lazy"):  # nothing waits for the device until log time
+                    with span(TRAIN_UPDATES), update_clock:
+                        for _ in range(n_updates):
+                            total_updates += 1
+                            vec = agent.update_parameters_lazy(replay, total_updates)
+                            vec_sum = vec if vec_sum is None else vec_sum + vec
+                            vec_count += 1
+                else:
+                    with span(TRAIN_UPDATES), update_clock:
+                        for _ in range(n_updates):
+                            total_updates += 1
+                            metrics = agent.update_parameters(replay, total_updates)
+                            for k, v in metrics.items():
+                                metric_sums[k] += float(v)
+                                metric_counts[k] += 1
+
+                if profiler is not None and steps >= profile_until:
+                    _stop_profiler(profiler, work_dir)
+                    profiler = None
+                    logger.info(f"Profiler trace written to {osp.join(work_dir, 'profile')}")
+
+                # ---- logging ----------------------------------------------------
+                if log_trigger.check(steps):
+                    if vec_sum is not None:
+                        avg_metrics = agent.reduce_metric_vecs(vec_sum, vec_count)  # one device fetch
+                        vec_sum, vec_count = None, 0
+                    else:
+                        avg_metrics = {k: metric_sums[k] / max(metric_counts[k], 1) for k in metric_sums}
+                    env_stats = {}
+                    if rollout is not None:
+                        if is_host_lead():  # the other ranks' rollouts collect nothing
+                            env_stats = rollout.episode_stats.get_stats()
+                        rollout.episode_stats.reset_history()
+                        # every rank enters: the mean over the hosts' leads
+                        env_stats = mean_over_hosts(env_stats)
+                    # the update programs' device seconds (their metrics are fetched), the slowest rank's
+                    time_sums["update_time"] = update_clock.take()
+                    time_sums.update(allreduce_stats({"update_time": time_sums["update_time"]}, op="max"))
+                    elapsed = time.monotonic() - begin_time
+                    rate = (steps - begin_steps) / max(elapsed, 1e-9)
+                    eta = format_eta((total_steps - steps) / max(rate, 1e-9))
+                    diag = {
+                        "buffer_size": len(replay) if replay is not None else 0,
+                        "total_grad_steps": total_updates,
+                        "samples_per_sec": rate,
+                        "memory_mb": get_total_memory_mb(),
+                        **time_sums,
+                    }
+                    logger.info(f"{steps}/{total_steps} ({steps / total_steps * 100:.0f}%) ETA {eta} | "
+                                + dict_to_str({**env_stats, **avg_metrics}) + " | " + dict_to_str(diag))
+                    if exp_logger is not None:
+                        exp_logger.log({**env_stats, **avg_metrics, **diag}, step=steps, tag="train")
+                    metric_sums.clear()
+                    metric_counts.clear()
+                    time_sums.clear()
+                    if recent_traj_replay is not None:
+                        recent_traj_replay.reset()
+
+                # ---- evaluation -------------------------------------------------
+                if evaluator is not None and eval_trigger.n and eval_trigger.check(steps) and lead:
+                    std_step = eval_trigger.standard(steps)
+                    agent.eval()
+                    if watchdog is not None:
+                        watchdog.pause()
+                    lens, rewards, finishes = evaluator.run(agent, num=eval_num,
+                                                            work_dir=f"{work_dir}/eval_{std_step}")
+                    if watchdog is not None:
+                        watchdog.resume()
+                    if exp_logger is not None:
+                        exp_logger.log({"rewards_mean": float(np.mean(rewards)),
+                                        "lengths_mean": float(np.mean(lens)),
+                                        "success_rate": float(np.mean(finishes))}, step=std_step, tag="test")
+
+                # ---- checkpoint -------------------------------------------------
+                if ckpt_trigger.n and ckpt_trigger.check(steps) and lead:
+                    std_step = ckpt_trigger.standard(steps)
+                    path = save_checkpoint(agent.state_dict(), work_dir, std_step)
+                    logger.info(f"Saved checkpoint at step {std_step}: {path}")
+                    if save_replay > 0 and replay is not None:
+                        t0 = time.monotonic()
+                        n = save_replay_snapshot(replay, save_replay, work_dir)
+                        logger.info(f"Saved replay snapshot ({n} transitions) in {time.monotonic() - t0:.1f} s")
+            cycle += 1
         main_loop_s = time.monotonic() - begin_time
         if profiler is not None:
             _stop_profiler(profiler, work_dir)

@@ -19,6 +19,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from ..utils.trace import REPLAY_SAMPLE, span
 from ..utils.tree_ops import (
     first_leaf,
     is_tensor,
@@ -213,14 +214,15 @@ class ReplayMemory:
         assert isinstance(self.sampling, TStepTransition), "sample_windows needs sampling_cfg type TStepTransition"
         horizon = self.sampling.horizon if horizon is None else horizon
         min_valid = max(self.running_count - self.capacity, 0)
-        spans = [(s, s + l) for (s, l) in self._episode_spans if s >= min_valid]
-        idx_g, mask = self.sampling.sample_windows(batch_size, spans, horizon=horizon)
-        flat = (idx_g % self.capacity).reshape(-1)
-        out = tree_take(self.memory, flat)
-        H = idx_g.shape[1]
-        out = tree_map(lambda x: x.reshape((batch_size, H) + x.shape[1:]), out)
-        out["is_valid"] = mask
-        return out
+        with span(REPLAY_SAMPLE):
+            spans = [(s, s + l) for (s, l) in self._episode_spans if s >= min_valid]
+            idx_g, mask = self.sampling.sample_windows(batch_size, spans, horizon=horizon)
+            flat = (idx_g % self.capacity).reshape(-1)
+            out = tree_take(self.memory, flat)
+            H = idx_g.shape[1]
+            out = tree_map(lambda x: x.reshape((batch_size, H) + x.shape[1:]), out)
+            out["is_valid"] = mask
+            return out
 
     def push(self, item: Dict[str, Any]) -> None:
         self.push_batch(tree_map(lambda x: np.asarray(x)[None], item))
@@ -359,8 +361,9 @@ class ReplayMemory:
         if self.dynamic_loading and self._chunk_sampled + batch_size > len(self):
             self._swap_chunk()
         self._chunk_sampled += batch_size
-        idx = self.sampling.sample(batch_size, len(self), self.capacity)
-        return tree_take(self.memory, idx)
+        with span(REPLAY_SAMPLE):
+            idx = self.sampling.sample(batch_size, len(self), self.capacity)
+            return tree_take(self.memory, idx)
 
     def tail(self, num: int) -> Dict[str, Any]:
         """The most recent num transitions in push order."""

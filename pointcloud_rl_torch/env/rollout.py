@@ -3,22 +3,23 @@
 
 Parity target: reference ``pyrl/env/rollout.py`` — random-action warm-up
 (``forward_with_policy(None, n)``), batched policy stepping with per-phase
-timers (simulation / agent / copy / overhead) and FPS logging, and a
-full-episode mode that caches trajectories until done before pushing
+times (simulation / agent / copy / overhead, read from the spans of
+``utils/trace.py``) and FPS logging, and a full-episode mode that caches trajectories until done before pushing
 (ManiSkill path).  Host-side mutable state (recent obs, auto-reset) lives in
 the vec env; the policy forward is the jitted actor.
 """
 
 from __future__ import annotations
 
-from collections import defaultdict
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
 
 from ..utils.logger import get_logger
 from ..utils.stats import EpisodicStatistics
-from ..utils.timer import Timer
+from ..utils.trace import ACT_DISPATCH, ACT_WAIT, ENV_WAIT, ROLLOUT_COLLECT, ROLLOUT_PUSH, span
+from ..utils.trace import seconds as span_seconds
 from .builder import ROLLOUTS, build_vec_env
 
 
@@ -71,7 +72,6 @@ class Rollout:
         self.action_lag = int(action_lag)
         assert self.action_lag in (0, 1), "only action_lag in {0, 1} is supported"
         self._lag_futures: Dict[int, Any] = {}  # group -> in-flight act future
-        self.timer = Timer()
         self.logger = get_logger("pcrl.rollout")
         self.episode_stats = EpisodicStatistics(self.num_envs)
         self.vec_env.reset()
@@ -93,7 +93,10 @@ class Rollout:
 
         pi=None -> uniform random actions built in-env (warm-up,
         reference rollout.py:54-65).  Returns the last collected batch dict
-        plus timing info under "_stats".
+        plus timing info under "_stats": the host seconds of the call's
+        spans (``utils/trace.py``), ``agent_time`` the act's dispatches and
+        waits, ``simulation_time`` the env waits (with the fusion of their
+        obs), ``copy_time`` the pushes, ``overhead_time`` the rest.
 
         ``recent_replay``: optional second buffer receiving EVERY collected
         transition (reference train_rl.py:281-283 pushes all trajectories of
@@ -107,13 +110,18 @@ class Rollout:
         collection (the device is otherwise idle while env workers
         simulate).
         """
-        self.timer.reset()
+        with span(ROLLOUT_COLLECT):
+            return self._collect(pi, num, replay, update_hook, recent_replay)
+
+    def _collect(self, pi, num: int, replay, update_hook, recent_replay) -> Dict[str, Any]:
+        start = (time.perf_counter(), dict(span_seconds))
         if pi is None:
             assert replay is not None
             ret = self.vec_env.step_random_actions(num)
-            replay.push_batch(ret)
-            if recent_replay is not None:
-                recent_replay.push_batch(ret)
+            with span(ROLLOUT_PUSH):
+                replay.push_batch(ret)
+                if recent_replay is not None:
+                    recent_replay.push_batch(ret)
             # Episode accounting for the warm-up transitions (row-wise; the
             # batch is grouped per worker so per-worker accumulation holds).
             rewards = np.asarray(ret["rewards"]).reshape(-1)
@@ -123,11 +131,10 @@ class Rollout:
             for j, (r, d, w) in enumerate(zip(rewards, dones, widx)):
                 self.episode_stats.push_single(int(w), float(r), bool(d), infos=infos, row=j)
             self.episode_stats.reset_current()  # random-path episodes ended by env resets
-            self.timer.tick("simulation")
-            return {"_stats": self._stats(num)}
+            return {"_stats": self._stats(num, start)}
 
         if self.full_episode:
-            return self._forward_full_episodes(pi, num, replay, recent_replay=recent_replay)
+            return self._forward_full_episodes(pi, num, replay, start, recent_replay=recent_replay)
 
         assert num % self.num_envs == 0, (
             f"num ({num}) must be divisible by num_envs ({self.num_envs}) for synchronized stepping"
@@ -138,31 +145,28 @@ class Rollout:
             and not getattr(getattr(pi, "model", None), "is_recurrent", False)
         )
         if can_pipeline:
-            return self._forward_pipelined(pi, num, replay, update_hook=update_hook,
+            return self._forward_pipelined(pi, num, replay, start, update_hook=update_hook,
                                            recent_replay=recent_replay)
         steps = num // self.num_envs
         last = None
         for _ in range(steps):
-            self.timer.skip()
             actions = pi(self.recent_obs, mode="explore")
-            self.timer.tick("agent")
             trans = self.vec_env.step_dict(np.asarray(actions))
-            self.timer.tick("simulation")
             if hasattr(pi, "reset_rnn_states") and trans["episode_dones"].any():
                 pi.reset_rnn_states(trans["episode_dones"])
             self.episode_stats.push(trans["rewards"][:, 0], trans["episode_dones"][:, 0], trans.get("infos"))
-            if replay is not None:
-                replay.push_batch(trans)
-            if recent_replay is not None:
-                recent_replay.push_batch({k: v for k, v in trans.items() if k != "infos"})
-            self.timer.tick("copy")
+            with span(ROLLOUT_PUSH):
+                if replay is not None:
+                    replay.push_batch(trans)
+                if recent_replay is not None:
+                    recent_replay.push_batch({k: v for k, v in trans.items() if k != "infos"})
             last = trans
         if last is not None:
             last = dict(last)
-            last["_stats"] = self._stats(num)
+            last["_stats"] = self._stats(num, start)
         return last
 
-    def _forward_pipelined(self, pi, num: int, replay, update_hook=None,
+    def _forward_pipelined(self, pi, num: int, replay, start, update_hook=None,
                            recent_replay=None) -> Dict[str, Any]:
         """Grouped pipelined collection (reference rollout.py:144-181
         step_async + partial_forward, redesigned for a remote accelerator).
@@ -174,11 +178,10 @@ class Rollout:
         env workers simulate, and vice versa.  A non-blocking event loop
         (jax.Array.is_ready + pipe polls) services whichever group is ready.
 
-        Per-group timing attribution: 'agent' counts blocked action fetches,
-        'simulation' blocked step waits, 'copy' replay pushes.
+        Timing attribution (the spans): 'agent' counts act dispatches and
+        blocked action fetches, 'simulation' blocked step waits, 'copy'
+        replay pushes.
         """
-        import time as _time
-
         import numpy as np  # noqa: F811 (local for speed in the loop)
 
         from ..utils.tree_ops import tree_map
@@ -191,7 +194,6 @@ class Rollout:
         futures: Dict[int, Any] = {}
         collected: list = []  # transitions buffered for ONE replay push at the end
         last = None
-        t_agent = t_sim = t_copy = 0.0
 
         def _obs_of(idx):
             # groups are contiguous ranges (array_split over arange): a
@@ -201,25 +203,22 @@ class Rollout:
             sl = slice(int(idx[0]), int(idx[-1]) + 1)
             return tree_map(lambda x: x[sl], self.vec_env.recent_obs)
 
-        def _flush(t0):
-            nonlocal t_copy
+        def _flush():
             from ..utils.tree_ops import tree_concat
 
-            batch = collected[0] if len(collected) == 1 else tree_concat(collected, 0)
-            collected.clear()
-            if replay is not None:
-                replay.push_batch(batch)
-            if recent_replay is not None:
-                recent_replay.push_batch(batch)
-            t_copy += _time.monotonic() - t0
+            with span(ROLLOUT_PUSH):
+                batch = collected[0] if len(collected) == 1 else tree_concat(collected, 0)
+                collected.clear()
+                if replay is not None:
+                    replay.push_batch(batch)
+                if recent_replay is not None:
+                    recent_replay.push_batch(batch)
 
         def _finish(g, idx, block: bool):
-            nonlocal last, t_sim
-            t0 = _time.monotonic()
+            nonlocal last
             if not block and not self.vec_env.step_dict_poll(idx=idx):
                 return False
             trans = self.vec_env.step_dict_wait(idx=idx)
-            t_sim += _time.monotonic() - t0
             for rank, w in enumerate(idx):
                 self.episode_stats.push_single(
                     int(w), float(trans["rewards"][rank, 0]), bool(trans["episode_dones"][rank, 0]),
@@ -238,7 +237,6 @@ class Rollout:
             progress = False
             for g, idx in enumerate(groups):
                 if state[g] == NEED_ACT:
-                    t0 = _time.monotonic()
                     new_fut = pi.forward_async(_obs_of(idx), mode="explore")
                     if self.action_lag:
                         # apply the PREVIOUS dispatch's action (in flight
@@ -250,7 +248,6 @@ class Rollout:
                         self._lag_futures[g] = new_fut
                     else:
                         futures[g] = new_fut
-                    t_agent += _time.monotonic() - t0
                     state[g] = ACT_PENDING
                     # Update programs enqueue BEHIND the act just dispatched:
                     # the act's fetch then pays only its own execution + the
@@ -262,12 +259,10 @@ class Rollout:
                     if update_hook is not None:
                         update_hook()
                     if self.eager_push and collected and (replay is not None or recent_replay is not None):
-                        _flush(_time.monotonic())
+                        _flush()
                     progress = True
                 elif state[g] == ACT_PENDING and futures[g].is_ready():
-                    t0 = _time.monotonic()
                     actions = np.asarray(futures.pop(g))
-                    t_agent += _time.monotonic() - t0
                     self.vec_env.step_dict_async(actions, idx=idx)
                     state[g] = SIMULATING
                     progress = True
@@ -279,9 +274,7 @@ class Rollout:
                 pend = [g for g in range(len(groups)) if state[g] == ACT_PENDING]
                 if pend:
                     g = pend[0]
-                    t0 = _time.monotonic()
                     actions = np.asarray(futures.pop(g))
-                    t_agent += _time.monotonic() - t0
                     self.vec_env.step_dict_async(actions, idx=groups[g])
                     state[g] = SIMULATING
                 else:
@@ -293,17 +286,14 @@ class Rollout:
             # ONE batched push per collection call (or the tail the eager
             # flushes didn't cover): a device replay pays one jitted
             # ring-write dispatch instead of one per group-step.
-            _flush(_time.monotonic())
+            _flush()
 
-        self.timer.add("agent", t_agent)
-        self.timer.add("simulation", t_sim)
-        self.timer.add("copy", t_copy)
         if last is not None:
             last = dict(last)
-            last["_stats"] = self._stats(num)
+            last["_stats"] = self._stats(num, start)
         return last
 
-    def _forward_full_episodes(self, pi, num: int, replay, recent_replay=None) -> Dict[str, Any]:
+    def _forward_full_episodes(self, pi, num: int, replay, start, recent_replay=None) -> Dict[str, Any]:
         """Cache per-worker trajectories; only full episodes enter the replay
         (reference rollout.py:116-283), with the DD-PPO-style straggler
         cutoff (rollout.py:219-221): once this host has >=80% of its quota
@@ -319,39 +309,39 @@ class Rollout:
             if multi_host and total >= 0.8 * num and num_done.get() >= num_hosts() / 2:
                 total += replay.push_cached_trajectories(max_push=num - total)
                 break
-            self.timer.skip()
             actions = pi(self.recent_obs, mode="explore")
-            self.timer.tick("agent")
             trans = self.vec_env.step_dict(np.asarray(actions))
-            self.timer.tick("simulation")
             if hasattr(pi, "reset_rnn_states") and trans["episode_dones"].any():
                 pi.reset_rnn_states(trans["episode_dones"])
             self.episode_stats.push(trans["rewards"][:, 0], trans["episode_dones"][:, 0], trans.get("infos"))
-            pushed = replay.cache_trajectories(trans, max_push=num - total)
-            if recent_replay is not None:
-                recent_replay.push_batch({k: v for k, v in trans.items() if k != "infos"})
+            with span(ROLLOUT_PUSH):
+                pushed = replay.cache_trajectories(trans, max_push=num - total)
+                if recent_replay is not None:
+                    recent_replay.push_batch({k: v for k, v in trans.items() if k != "infos"})
             total += pushed
-            self.timer.tick("copy")
             last = trans
         if multi_host:
             num_done.add(1)
         if last is not None:
             last = dict(last)
-            last["_stats"] = self._stats(num)
+            last["_stats"] = self._stats(num, start)
         return last
 
-    def _stats(self, num: int) -> Dict[str, float]:
-        t = self.timer.todict()
-        total = max(self.timer.total(), 1e-9)
-        stats = {
-            "simulation_time": t.get("simulation", 0.0),
-            "agent_time": t.get("agent", 0.0),
-            "copy_time": t.get("copy", 0.0),
-            "overhead_time": max(total - sum(t.values()), 0.0),
+    @staticmethod
+    def _stats(num: int, start) -> Dict[str, float]:
+        """The call's times from ``start`` (the host clock and the spans'
+        seconds when it began)."""
+        t0, before = start
+        spent = {k: span_seconds[k] - before[k] for k in before}
+        total = max(time.perf_counter() - t0, 1e-9)
+        return {
+            "simulation_time": spent[ENV_WAIT],
+            "agent_time": spent[ACT_DISPATCH] + spent[ACT_WAIT],
+            "copy_time": spent[ROLLOUT_PUSH],
+            "overhead_time": max(total - sum(spent.values()), 0.0),
             "fps": num / total,
             "num_steps": num,
         }
-        return stats
 
     def close(self):
         self.vec_env.close()

@@ -19,6 +19,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from ..utils.trace import OBS_FUSE, span
 from .vec_env import VectorEnvBase
 
 
@@ -54,9 +55,10 @@ class ServerObsVectorEnv(VectorEnvBase):
 
         from ..ops.obs_fuse import dmc_raw_to_pointcloud
 
-        depth, rgb, cam = (torch.as_tensor(np.asarray(raw[k])).to(self.device) for k in ("depth", "rgb", "cam"))
-        out = dmc_raw_to_pointcloud(depth, rgb, cam, self._inv_k, generator=self.generator, **self._fuse_kw)
-        fused = {k: v.cpu().numpy() for k, v in out.items()}
+        with span(OBS_FUSE):
+            depth, rgb, cam = (torch.as_tensor(np.asarray(raw[k])).to(self.device) for k in ("depth", "rgb", "cam"))
+            out = dmc_raw_to_pointcloud(depth, rgb, cam, self._inv_k, generator=self.generator, **self._fuse_kw)
+            fused = {k: v.cpu().numpy() for k, v in out.items()}
         if self.num_frames == 1:
             fused.pop("pos_encoding")  # the unstacked contract has no frame channel
         return fused

@@ -21,6 +21,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from ..utils.trace import ENV_WAIT, span
 from ..utils.tree_ops import tree_concat, tree_expand, tree_map, tree_slice, tree_stack
 from .api import Env, true_done
 from .spaces import stack_action_space
@@ -555,7 +556,8 @@ class UnifiedVectorEnvAPI(VectorEnvBase):
         idx = np.arange(self.num_envs) if idx is None else np.asarray(idx)
         key = tuple(int(i) for i in idx)
         pend = self._pending.pop(key)
-        next_obs, rewards, dones, infos = self.vec_env.step_wait(idx)
+        with span(ENV_WAIT):
+            next_obs, rewards, dones, infos = self.vec_env.step_wait(idx)
         self.episode_dones[idx] = dones
 
         ret = dict(
@@ -579,7 +581,8 @@ class UnifiedVectorEnvAPI(VectorEnvBase):
         return ret
 
     def step_random_actions(self, num) -> Dict[str, Any]:
-        ret = self.vec_env.step_random_actions(num)
+        with span(ENV_WAIT):
+            ret = self.vec_env.step_random_actions(num)
         # After random stepping the cached obs are stale; re-reset all envs.
         self.reset()
         return ret

@@ -583,3 +583,43 @@ def test_graphed_act_fused_chunks_equal_eager_on_gpu():
         _assert_same_state(graphed, eager, f"fused forward {step}")
     vec, done = graphed.finish_fused_updates()
     assert done == 8 and bool(torch.isfinite(vec).all())
+
+
+@pytest.mark.gpu
+def test_a_programs_rebuilds_are_traced_and_counted_on_gpu():
+    """Four scans of one key in a profiler session: the first runs eagerly
+    (one ``graphs.eager`` span), the second captures (one ``graphs.capture``)
+    and replays, the rest only replay (``graphs.replay``); the programs'
+    counters say the same, and a host batch's program opens a
+    ``graphs.upload`` before each replay."""
+    from pointcloud_rl_torch.utils import trace
+
+    _card()
+    graphed, _, mem, env_info = _card_agents("sac")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def graph_spans(prof):  # the host's spans (the session also marks each span's range on the card)
+        events = sorted((e for e in prof.events() if e.name.startswith("graphs.")
+                         and e.device_type == torch.autograd.DeviceType.CPU), key=lambda e: e.time_range.start)
+        return [e.name for e in events]
+
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(4):
+            graphed.update_parameters_scan(mem, 4)  # 4 updates: the gate phase, and so the key, stays
+        torch.cuda.synchronize()
+    assert graph_spans(prof) == [trace.GRAPHS_EAGER, trace.GRAPHS_CAPTURE] + [trace.GRAPHS_REPLAY] * 3
+    stats = graphed._programs.stats()
+    assert (stats["eager_runs"], stats["captures"], stats["invalidations"]) == (1, 1, 0)
+    assert [p["replays"] for p in stats["programs"].values()] == [3]
+
+    batch = _transitions(np.random.RandomState(4), 16, env_info["action_shape"])
+    with torch.profiler.profile(activities=acts) as prof:
+        for u in range(4):  # the interval-2 gates: two keys, each run eagerly, captured, replayed
+            graphed.update_parameters_lazy(_OneBatch(batch), u)
+        torch.cuda.synchronize()
+    assert graph_spans(prof) == [trace.GRAPHS_EAGER] * 2 + [trace.GRAPHS_CAPTURE, trace.GRAPHS_UPLOAD,
+                                                              trace.GRAPHS_REPLAY] * 2
+    stats = graphed._programs.stats()
+    assert (stats["eager_runs"], stats["captures"], stats["invalidations"]) == (3, 3, 0)
+    graphed.drop_programs()
+    assert graphed._programs.stats()["invalidations"] == 1
