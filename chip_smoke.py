@@ -32,7 +32,13 @@ Phases (any failure exits non-zero and prints no result):
    points in different chunks (the winners must equal the plain first-index
    argmax exactly), gradients of ``FusedPointNetBody`` against autograd
    through the plain body, and ms per call of kernel and plain version
-   beside the least time the card could take (``bound_ms``).
+   beside the least time the card could take (``bound_ms``).  The winner
+   backward (``pointnet_fused_bwd``) against the plain ``_winner_backward``
+   with TF32 off at every training shape of the main path (``BWD_SHAPES``):
+   the ten parameter gradients within ``BWD_TOL``, repeat calls bitwise
+   equal, ms per call beside its f32 FFMA bound; its kernels must hold no
+   tensor-core instruction.  Every training run below must launch it, and
+   no evaluation.
 3b. The update programs as CUDA graphs (``graphs``), in this process,
    each against the eager step it captures, bitwise, from one state (two
    agents, the eager twin loaded from the graphed one): (1) the walker
@@ -301,7 +307,7 @@ RNN_OPTS = ["agent_cfg.actor_cfg.nn_cfg.rnn_cfg.type=GRU", "agent_cfg.actor_cfg.
             "replay_cfg.sampling_cfg.horizon=8"]
 # The training runs of phase 4: (name, config, its --cfg-options, metric
 # prefix, whether its encoder is the fused PointNet: the runs that are must
-# launch both kernels, the others neither; env steps, checkpointed at half
+# launch both forward entries and the winner backward, the others none; env steps, checkpointed at half
 # and at the end).  The PointNet runs are cut to 1200 steps and the voxel
 # run, the slowest per update, to 1000 to keep the script inside its time
 # (a run must pass 1000 steps: it logs every 500 after the 512-step warm-up).
@@ -322,6 +328,12 @@ TPU_KERNELS = {
     "pointnet_fused_fwd_idx": "pointcloud_rl_tpu/ops/pointnet_fused.py:113",
     "pointnet_fused_fwd_max": "pointcloud_rl_tpu/ops/pointnet_fused.py:138",
 }
+# The winner backward (``pointnet_fused.bwd_launch_counts``): plain jnp ops
+# in the JAX package, a hand-written kernel chain (winner_bwd_*) here.
+BWD_KERNEL = "pointnet_fused_bwd"
+BWD_REPLACES = "pointcloud_rl_tpu/ops/pointnet_fused.py:228"
+# What a PointNet training run launches: both forward entries and the backward.
+TRAIN_KERNELS = [*TPU_KERNELS, BWD_KERNEL]
 # (name, B, N, C_in, widths, compute dtype name): the main path's shapes,
 # timed (SAC's and DDPG's update encodes at B=256, a data-parallel rank's
 # 128 of them at 2 ranks and 64 at 4, DrQ's at 2 x 256 rows
@@ -353,6 +365,13 @@ SHAPES = [
     ("maniskill_act_f32", 4, 1200, 9, (128, 128, 256), "float32"),
     ("maniskill_act2_f32", 2, 1200, 9, (128, 128, 256), "float32"),
 ]
+# The winner backward at the shapes the main path trains at (names of
+# SHAPES): the SAC slice, the data-parallel ranks, DrQ in f32 and bf16 (the
+# recurrent critic's rows too), the walker's updates and its DrQ recipe's,
+# and the ManiSkill SAC and DrQ encodes.  The act and target encodes run
+# without grad and never reach it.
+BWD_SHAPES = ["slice_f32", "dp_rank_f32", "dp_rank4_f32", "drq_f32", "drq_bf16", "walker_bf16",
+              "walker_drq_bf16", "maniskill_f32", "maniskill_drq_f32"]
 EDGE_SHAPES = [
     ("b1_n1", 1, 1, 8, (128, 128, 256), "float32"),
     ("b1_n63", 1, 63, 9, (64, 128, 256), "float32"),
@@ -379,6 +398,14 @@ POOLED_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 2e-2)}  # (atol, rtol)
 # Gradients: f32 winner-row recompute vs autograd through cuBLAS f32 and
 # per-element sums over the batch; compared relative to each tensor's scale.
 GRAD_RTOL = 1e-3
+# The winner backward against the plain ``_winner_backward``, both in f32
+# with TF32 off: each gradient's worst element over the tensor's largest.
+# The H100 gives under 1e-6 at every shape of BWD_SHAPES; a TF32 product
+# moves them by 1e-4 and more.
+BWD_TOL = 1e-5
+BWD_BOUND_FORMULA = ("max(ops, bytes): ops = FLOP/67e12 s (f32 FFMA), FLOP = 3 * 2*B*c3*(C_in*c1 + c1*c2 + c2*c3) "
+                     "(the winner rows' forward again, then the products of their backward); bytes = the "
+                     "winner rows of x, idx and g read once, over 3.35e12 B/s")
 # Trained agent, kernel on the card vs plain body on the CPU: f32 features
 # that differ by ~1e-6, through the 1024-wide head and a tanh (slope <= 1).
 ACTION_ATOL = 1e-4
@@ -507,6 +534,12 @@ def phase_sass(lib_path: str) -> dict:
     for k, (hgmma, hmma) in sorted(counts.items()):
         if "pointnet_body" not in k:
             print(f"[sass] {k}: {hgmma} HGMMA, {hmma} HMMA", flush=True)
+    # the winner backward is f32 FFMA: a tensor-core product in it would be TF32
+    bwd = {k: v for k, v in counts.items() if "winner_bwd" in k}
+    if not any("winner_bwd_kernel" in k for k in bwd) or any(sum(v) for v in bwd.values()):
+        fail(f"expected winner_bwd kernels without HGMMA or HMMA in the library, found {bwd}")
+    per_entry[BWD_KERNEL] = {("bf16" if "bfloat16" in k else "f32"): v[0] for k, v in bwd.items()
+                             if "winner_bwd_kernel" in k}
     return per_entry
 
 
@@ -626,6 +659,59 @@ def phase_kernels(pf, report: dict, card: str) -> None:
           f"(limit {GRAD_RTOL})", flush=True)
 
 
+def bwd_bound_ms(B, c_in, widths, dname):
+    """The least time the winner backward could take at one shape (no dx),
+    as BWD_BOUND_FORMULA says.  Returns (ms, "operations" or "bytes")."""
+    c1, c2, c3 = widths
+    rows = B * c3
+    ops_s = 3 * 2 * rows * (c_in * c1 + c1 * c2 + c2 * c3) / PEAK_F32
+    mem_s = rows * (c_in * (4 if dname == "float32" else 2) + 8) / PEAK_BYTES
+    return 1e3 * max(ops_s, mem_s), ("operations" if ops_s >= mem_s else "bytes")
+
+
+def phase_bwd_kernel(pf, card: str) -> dict:
+    """The winner-backward kernel against the plain ``_winner_backward`` at
+    each shape of BWD_SHAPES (winners from the with-argmax forward, a random
+    cotangent): the ten parameter gradients within BWD_TOL of each tensor's
+    largest, two calls bitwise equal, and ms per call of both beside
+    ``bwd_bound_ms``.  Returns {"max_gap": worst gap, "shapes": {...}}."""
+    import torch
+
+    shapes = {s[0]: s[1:] for s in SHAPES}
+    names = ["dw1", "db1", "dw2", "db2", "dg2", "dbe2", "dw3", "db3", "dg3", "dbe3"]
+    rec: dict = {"max_gap": 0.0, "shapes": {}}
+    for name in BWD_SHAPES:
+        B, N, c_in, widths, dname = shapes[name]
+        x, params = make_inputs(B, N, c_in, widths, seed=7)
+        cdt = None if dname == "float32" else getattr(torch, dname)
+        x = x.to(cdt or torch.float32)
+        with torch.no_grad():
+            _, idx = pf._forward_kernel(x, params, cdt, with_idx=True)
+            g = torch.randn(idx.shape, generator=torch.Generator("cuda").manual_seed(8), device="cuda")
+            _, want = pf._winner_backward(x, params, idx, g)
+            _, got = pf._winner_backward_kernel(x, params, idx, g, False)
+            _, again = pf._winner_backward_kernel(x, params, idx, g, False)
+            torch.cuda.synchronize()
+            gaps = {}
+            for gname, a, b in zip(names, got, want):
+                gaps[gname] = float((a - b).abs().max() / b.abs().max())
+                if not math.isfinite(gaps[gname]) or gaps[gname] > BWD_TOL:
+                    fail(f"winner backward {name} {gname}: max abs err / max abs = {gaps[gname]:.3e} > {BWD_TOL}")
+            if not all(torch.equal(a, b) for a, b in zip(again, got)):
+                fail(f"winner backward {name}: two calls on the same inputs are not bitwise equal")
+            ms = time_ms(lambda: pf._winner_backward_kernel(x, params, idx, g, False))
+            plain = time_ms(lambda: pf._winner_backward(x, params, idx, g), iters=5)
+        bound, by = bwd_bound_ms(B, c_in, widths, dname)
+        worst = max(gaps.values())
+        rec["max_gap"] = max(rec["max_gap"], worst)
+        rec["shapes"][name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by, "max_gap": worst}
+        print(f"[kernels] winner backward {name} B={B} N={N} C_in={c_in} widths={widths} {dname}: worst gap "
+              f"{worst:.3e} (limit {BWD_TOL}), repeat bitwise equal; ms/call {ms:.4f} (plain {plain:.3f}, "
+              f"bound {bound:.4f}, {bound / ms:.1%} of it) on {card}", flush=True)
+        del x, params, idx, g, want, got, again
+    return rec
+
+
 def run_cli(config: str, args, log_path: str, timeout: int, env=None) -> None:
     cmd = [sys.executable, "-m", "pointcloud_rl_torch.apis.run_rl", config, *args]
     print("[run] $ " + " ".join(cmd[1:]), flush=True)
@@ -678,6 +764,16 @@ def check_launches(name: str, stage: str, launches: dict, pointnet: bool, kernel
             fail(f"{kname} launched {n} times in the {name} {stage} run, whose encoder is not PointNet")
 
 
+def launched(pf) -> dict:
+    """The launches counted since the last reset: both forward entries and the winner backward."""
+    return {**pf.launch_counts, **pf.bwd_launch_counts}
+
+
+def run_launches(summary: dict) -> dict:
+    """A ``run_summary.json``'s launches, the winner backward's with them."""
+    return {**summary["launches"], **summary["bwd_launches"]}
+
+
 def checkpoints(total: int):
     return (f"model_{total // 2}", f"model_{total}", "model_final")
 
@@ -703,7 +799,7 @@ def phase_train(work: str, name: str, config: str, opts, prefix: str, pointnet: 
         summary["device_idle_share"] = 1.0 - busy_ms / profile * summary["env_steps_per_s"] / 1e3
     if not summary["device"].startswith("cuda"):
         fail(f"{name} ran on {summary['device']}")
-    check_launches(name, "training", summary["launches"], pointnet, TPU_KERNELS)
+    check_launches(name, "training", run_launches(summary), pointnet, TRAIN_KERNELS)
     for ckpt in checkpoints(total):
         if not osp.isfile(osp.join(wd, "models", ckpt)):
             fail(f"{name}: checkpoint {ckpt} missing")
@@ -712,7 +808,7 @@ def phase_train(work: str, name: str, config: str, opts, prefix: str, pointnet: 
         fail(f"{name}: no train/{prefix}/critic_loss was logged")
     replay = summary["replay"]
     print(f"[{name}] train: {summary['steps']} env steps, {summary['grad_steps']} updates on "
-          f"{summary['device_name']}; kernel launches {summary['launches']}; replay {replay}", flush=True)
+          f"{summary['device_name']}; kernel launches {run_launches(summary)}; replay {replay}", flush=True)
 
     run_cli(config, common + ["--evaluation", "--resume-from", osp.join(wd, "models", "model_final"),
                               "--cfg-options", *opts], osp.join(work, f"{name}_eval.log"), timeout=180)
@@ -720,6 +816,8 @@ def phase_train(work: str, name: str, config: str, opts, prefix: str, pointnet: 
     if not ev["eval"] or not all(math.isfinite(v) for v in ev["eval"].values()):
         fail(f"{name}: evaluation returned {ev['eval']}")
     check_launches(name, "evaluation", ev["launches"], pointnet, ["pointnet_fused_fwd_max"])
+    if ev["bwd_launches"][BWD_KERNEL] != 0:
+        fail(f"{name}: the evaluation launched the winner backward {ev['bwd_launches'][BWD_KERNEL]} times")
     print(f"[{name}] eval from model_final: {ev['eval']}", flush=True)
 
     # a cold resume refills min(warm-up, 200) = 200 steps with the policy
@@ -1584,10 +1682,10 @@ def phase_dmc(pf, card: str) -> dict:
                 prof[part][0] += host
                 prof[part][1] += busy
         torch.cuda.synchronize()
-        launches = dict(pf.launch_counts)
+        launches = launched(pf)
     finally:
         rollout.close()
-    for kname in TPU_KERNELS:
+    for kname in TRAIN_KERNELS:
         if launches[kname] <= 0:
             fail(f"{kname} was never launched by the dmc run")
     if not bool(torch.isfinite(torch.stack(vecs)).all()):
@@ -2351,7 +2449,7 @@ def phase_dp(card: str, nccl_ranks: int = 1) -> dict:
             summary = read_summary(osp.join(root, "0"))
             if summary["world_size"] != nccl_ranks or summary["steps"] != 640:
                 fail(f"dp: run_rl --num-devices {nccl_ranks} summary {summary}")
-            check_launches("ranks", "training", summary["launches"], True, TPU_KERNELS)
+            check_launches("ranks", "training", run_launches(summary), True, TRAIN_KERNELS)
             models = sorted(os.listdir(osp.join(root, "0", "models")))
             if models != ["model_576", "model_final"]:
                 fail(f"dp: run_rl --num-devices {nccl_ranks} wrote {models}")
@@ -2442,7 +2540,7 @@ def hosts_worker(mode: str, out_path: str) -> None:
     def recorded(**kwargs):
         out = train_rl(**kwargs)
         torch.cuda.synchronize()
-        result["launches"] = dict(pf.launch_counts)  # run_rl set them to 0 just before training
+        result["launches"] = launched(pf)  # run_rl set them to 0 just before training
         agent, replay = kwargs["agent"], kwargs["replay"]
         state = train_state_on_host(agent)
         result.update(out, updates_per_s=out["grad_steps"] / out["main_loop_s"], replay_len=len(replay),
@@ -2532,7 +2630,7 @@ def phase_hosts(card: str) -> dict:
         if h0["metrics"] != h1["metrics"]:
             fail("hosts: the update metrics differ across the hosts")
         for name, res in (("host 0", h0), ("host 1", h1)):
-            check_launches(f"hosts {name}", "training", res["launches"], True, TPU_KERNELS)
+            check_launches(f"hosts {name}", "training", res["launches"], True, TRAIN_KERNELS)
             if res["steps"] != HOSTS_TOTAL or res["grad_steps"] != (HOSTS_TOTAL - 512) // 4:
                 fail(f"hosts {name}: {res['steps']} env steps, {res['grad_steps']} updates")
         gaps = report_world("2 hosts x 1 rank, gloo", h0["checks"], tag="hosts")
@@ -2561,7 +2659,7 @@ def phase_hosts(card: str) -> dict:
         v0, v1 = run_dp_workers(work, "vote", 2, phase="hosts")
         vote_s = time.monotonic() - t1
         for name, res in (("host 0", v0), ("host 1", v1)):
-            check_launches(f"hosts vote {name}", "training", res["launches"], True, TPU_KERNELS)
+            check_launches(f"hosts vote {name}", "training", res["launches"], True, TRAIN_KERNELS)
             bad = [c for c in res["calls"] if not 0.8 * c["num"] <= c["pushed"] <= c["num"]]
             if bad:
                 fail(f"hosts vote {name}: collections pushed outside [0.8 num, num]: {bad}")
@@ -2585,7 +2683,7 @@ def phase_hosts(card: str) -> dict:
                                                    "grad_steps")} for h, r in enumerate((h0, h1))},
             "gaps": gaps, "train_s": train_s,
             "vote": {f"host{h}": r["calls"] for h, r in enumerate((v0, v1))}, "vote_s": vote_s,
-            "launches": {k: sum(r["launches"][k] for r in (h0, h1, v0, v1)) for k in TPU_KERNELS}}
+            "launches": {k: sum(r["launches"][k] for r in (h0, h1, v0, v1)) for k in TRAIN_KERNELS}}
 
 
 def phase_hosts_nccl(card: str) -> dict:
@@ -2622,7 +2720,8 @@ def phase_hosts_nccl(card: str) -> dict:
         if (summary["hosts"], summary["world_size"], summary["steps"]) != (2, 2, HOSTS_TOTAL) or \
                 summary["collected_steps_per_host"] != [HOSTS_TOTAL, HOSTS_TOTAL]:
             fail(f"hosts: the torchrun world's run_summary.json says {summary}")
-        check_launches("hosts torchrun", "training", summary["launches"], True, TPU_KERNELS)
+        summary["launches"] = run_launches(summary)
+        check_launches("hosts torchrun", "training", summary["launches"], True, TRAIN_KERNELS)
         if sorted(os.listdir(osp.join(root, "0", "models"))) != ["model_final"]:
             fail("hosts: the torchrun world wrote other checkpoints than model_final")
         read_metrics(osp.join(root, "0", "logs", "metrics.csv"))
@@ -2830,12 +2929,12 @@ def phase_replay_io(pf, card: str) -> dict:
                        exp_logger=log)
         end.record()
         torch.cuda.synchronize()
-        launches = dict(pf.launch_counts)
+        launches = launched(pf)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     ms = start.elapsed_time(end)
     updates = out["grad_steps"]
-    for kname in TPU_KERNELS:
+    for kname in TRAIN_KERNELS:
         if launches[kname] <= 0:
             fail(f"{kname} was never launched by the offline updates of the replay-io phase")
     bad = [(i, k) for i, row in enumerate(log.rows) for k, v in row.items()
@@ -3084,7 +3183,7 @@ def phase_maniskill(card: str) -> dict:
 
     work = tempfile.mkdtemp(prefix="chip_smoke_maniskill_", dir=osp.join(REPO, "build"))
     root = osp.join(work, "standin")
-    rec: dict = {"runs": {}, "launches": {k: 0 for k in TPU_KERNELS}}
+    rec: dict = {"runs": {}, "launches": {k: 0 for k in TRAIN_KERNELS}}
     try:
         write_maniskill_standin(root)
         t0 = time.monotonic()
@@ -3102,7 +3201,8 @@ def phase_maniskill(card: str) -> dict:
             summary = read_summary(wd)
             if not summary["device"].startswith("cuda") or summary.get("jax_modules") != []:
                 fail(f"{name}: ran on {summary['device']} with JAX modules {summary.get('jax_modules')}")
-            check_launches(name, "training", summary["launches"], True, TPU_KERNELS)
+            summary["launches"] = run_launches(summary)
+            check_launches(name, "training", summary["launches"], True, TRAIN_KERNELS)
             rows = read_metrics(osp.join(wd, "logs", "metrics.csv"))
             if not any(r.get(f"train/{prefix}/critic_loss") for r in rows):
                 fail(f"{name}: no train/{prefix}/critic_loss was logged")
@@ -3130,7 +3230,7 @@ def phase_maniskill(card: str) -> dict:
                    "pointcloud_rl_tpu_modules": summary["pointcloud_rl_tpu_modules"],
                    "jax_modules": summary["jax_modules"], "s": time.monotonic() - t_run}
             rec["runs"][name] = run
-            for k in TPU_KERNELS:
+            for k in TRAIN_KERNELS:
                 rec["launches"][k] += summary["launches"][k]
             print(f"[maniskill] {name}: {config} ({env_cfg['env_name']}) at full width (fused PointNet, 4 env "
                   f"workers, host replay {summary['replay']['capacity']}): {summary['steps']} env steps, "
@@ -3348,7 +3448,7 @@ def pipeline_run(pf, lag: int, work: str, card: str, fused: bool = False) -> dic
                        n_steps=n_steps, n_updates=n_updates, n_log=PIPE_LOG_EVERY, n_eval=-1, n_checkpoint=-1,
                        stall_timeout=train_cfg["stall_timeout"], act_fused_updates=fused)
         torch.cuda.synchronize()
-        launches = dict(pf.launch_counts)
+        launches = launched(pf)
     finally:
         rollout.close()
     # the applied actions: the dispatch of the previous group-step (lag 1) or their own (lag 0)
@@ -3375,7 +3475,7 @@ def pipeline_run(pf, lag: int, work: str, card: str, fused: bool = False) -> dic
     if not bool(torch.isfinite(torch.stack(vecs)).all()):
         fail(f"pipeline lag {lag}: non-finite update metrics")
     metrics = agent.reduce_metric_vecs(vec_sum, n_cycles * n_updates)
-    for kname in TPU_KERNELS:
+    for kname in TRAIN_KERNELS:
         if launches[kname] <= 0:
             fail(f"{kname} was never launched by the pipeline run (lag {lag})")
     timed = [w for w, busy in cycles[2:PIPE_CYCLES]]  # the first two hold first calls, the eager run and the capture
@@ -3417,7 +3517,7 @@ def phase_pipeline(pf, card: str) -> dict:
     from pointcloud_rl_torch.env import build_vec_env
 
     t0 = time.monotonic()
-    rec: dict = {"forward_async": {}, "runs": {}, "launches": {k: 0 for k in TPU_KERNELS}}
+    rec: dict = {"forward_async": {}, "runs": {}, "launches": {k: 0 for k in TRAIN_KERNELS}}
     agent_cfg, info, env_cfg = resolved_agent_cfg(SLICE_CONFIG, [FUSED])
     frames = env_frames(env_cfg, 8, seed=2)
     sac = build_agent(dict(agent_cfg, env_params=info, seed=0, device="cuda"))
@@ -3447,7 +3547,7 @@ def phase_pipeline(pf, card: str) -> dict:
         for lag, fused in ((1, False), (0, False), (1, True)):
             run = pipeline_run(pf, lag, osp.join(work, f"lag{lag}_{fused}"), card, fused)
             rec["runs"][f"action_lag_{lag}" + ("_act_fused" if fused else "")] = run
-            for k in TPU_KERNELS:
+            for k in TRAIN_KERNELS:
                 rec["launches"][k] += run["launches"][k]
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3716,7 +3816,7 @@ def phase_graphs(pf, card: str) -> dict:
     del graphed, eager, replay
     torch.cuda.empty_cache()
     rec["host_batch"] = graphs_host_batch(pf, card, acts)
-    rec["launches"] = dict(pf.launch_counts)
+    rec["launches"] = launched(pf)
     rec["s"] = time.monotonic() - t0
     print(f"[time] graphs phase: {rec['s']:.1f} s", flush=True)
     return rec
@@ -3764,6 +3864,7 @@ def main() -> int:
 
     report: dict = {}
     phase_kernels(pf, report, card)
+    bwd = phase_bwd_kernel(pf, card)
     print(f"[time] build and kernel phases: {time.monotonic() - t0:.1f} s", flush=True)
 
     by_run: dict = {}
@@ -3805,7 +3906,7 @@ def main() -> int:
             shutil.copytree(work, keep, ignore=shutil.ignore_patterns("models", "*.py"))
             shutil.rmtree(work, ignore_errors=True)
         for name, summary in summaries.items():
-            by_run[name] = summary["launches"]
+            by_run[name] = run_launches(summary)
             idle = (f"; device busy {summary['device_busy_ms_per_env_step']:.2f} ms per env step over the first "
                     f"{RUNS_PROFILE_STEPS} (traced), idle {summary['device_idle_share']:.1%} of the main loop, alone"
                     if "device_idle_share" in summary else f", {RUNS_AT_ONCE} runs at a time")
@@ -3813,8 +3914,8 @@ def main() -> int:
                   f"{summary['updates_per_s']:.1f} updates/s over the main loop "
                   f"({summary['main_loop_s']:.1f} s){idle} on {card}", flush=True)
         print(json.dumps({"runs": {name: {k: summary.get(k) for k in (
-            "env_steps_per_s", "updates_per_s", "main_loop_s", "launches", "device_busy_ms_per_env_step",
-            "device_idle_share")} for name, summary in summaries.items()}}), flush=True)
+            "env_steps_per_s", "updates_per_s", "main_loop_s", "launches", "bwd_launches",
+            "device_busy_ms_per_env_step", "device_idle_share")} for name, summary in summaries.items()}}), flush=True)
         print(f"[time] through the training runs: {time.monotonic() - t0:.1f} s", flush=True)
     if wanted("encoders"):
         phase_encoders(card)
@@ -3890,6 +3991,19 @@ def main() -> int:
             "walker_bf16_bound_ms": shp["walker_bf16"]["bound_ms"],
             "hgmma": hgmma[kname],
         })
+    bwd_runs = {name: run[BWD_KERNEL] for name, run in by_run.items() if BWD_KERNEL in run}
+    shp = bwd["shapes"]
+    kernels.append({
+        "name": BWD_KERNEL, "route": "cuda", "source": KERNEL_SOURCE, "replaces": BWD_REPLACES,
+        "launches": sum(bwd_runs.values()) if bwd_runs else None, "max_gap": bwd["max_gap"],
+        "ms": shp["slice_f32"]["ms"], "plain_ms": shp["slice_f32"]["plain_ms"],
+        "bound_ms": shp["slice_f32"]["bound_ms"], "bound_by": shp["slice_f32"]["bound_by"],
+        "bound_formula": BWD_BOUND_FORMULA, "share_of_bound": shp["slice_f32"]["bound_ms"] / shp["slice_f32"]["ms"],
+        "library_ms": None,  # no single PyTorch call computes the winner rows' backward
+        "launches_by_run": bwd_runs,
+        **{f"{shape}_{key}": shp[shape][key] for shape in BWD_SHAPES[1:] for key in ("ms", "plain_ms", "bound_ms")},
+        "hgmma": hgmma[BWD_KERNEL],
+    })
     print(f"[time] total: {time.monotonic() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -26,8 +26,9 @@ makes once per device, so that nothing is uploaded from the host inside a
 capture; the second call captures it (nothing runs) and replays it; later
 calls replay.  A capture does not execute, but its Python runs: the
 agent's update counter and metric keys are put back after it, and the
-fused PointNet kernel's launch counts captured in it are taken back and
-added again on every replay, which is where those kernels launch.  Every
+fused PointNet kernels' launch counts captured in it (the forward's and the
+winner backward's) are taken back and added again on every replay, which
+is where those kernels launch.  Every
 generator the body draws from (the agent's, its act generator, the
 replay's) is registered with the graph, so a replay draws what the eager
 step would and advances the generators as it would.  Returned tensors
@@ -111,6 +112,14 @@ class _Program:
         self.replays = 0
 
 
+# The launch counters a capture takes back and a replay adds again.
+_LAUNCH_COUNTERS = (pointnet_fused.launch_counts, pointnet_fused.bwd_launch_counts)
+
+
+def _counter(name: str) -> Dict[str, int]:
+    return next(c for c in _LAUNCH_COUNTERS if name in c)
+
+
 class UpdatePrograms:
     """The captured programs of one agent on one card, in one memory pool.
 
@@ -183,7 +192,7 @@ class UpdatePrograms:
             prog.replays += 1
             self.agent.updates += n
             for name, count in prog.launches.items():
-                pointnet_fused.launch_counts[name] += count
+                _counter(name)[name] += count
             return tuple(o.clone() for o in prog.outputs)
 
     def _capture(self, key: Tuple, body: Callable, inputs, generators: Sequence) -> _Program:
@@ -202,7 +211,7 @@ class UpdatePrograms:
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         updates, metric_keys = agent.updates, agent._metric_keys
-        counts = dict(pointnet_fused.launch_counts)
+        counts = [dict(c) for c in _LAUNCH_COUNTERS]
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()  # as the capture does first: the pool's growth is what it reserves anew
         reserved = torch.cuda.memory_reserved(self.device)
@@ -213,8 +222,9 @@ class UpdatePrograms:
         except Exception as err:
             raise RuntimeError(f"capturing the update program {key} as a CUDA graph failed: {err}") from err
         finally:
-            captured = {k: v - counts[k] for k, v in pointnet_fused.launch_counts.items()}
-            pointnet_fused.launch_counts.update(counts)
+            captured = {k: v - before[k] for c, before in zip(_LAUNCH_COUNTERS, counts) for k, v in c.items()}
+            for c, before in zip(_LAUNCH_COUNTERS, counts):
+                c.update(before)
             agent.updates, agent._metric_keys = updates, metric_keys
         torch.cuda.synchronize(self.device)
         capture_ms = 1e3 * (time.perf_counter() - t0)

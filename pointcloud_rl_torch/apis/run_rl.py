@@ -449,12 +449,13 @@ def run(cfg: Config, work_dir: str, seed: int, args, world: int = 1) -> dict:
             torch.cuda.synchronize(device)
         summary["replay"] = replay_summary(replay)
         summary["launches"] = dict(pointnet_fused.launch_counts)
+        summary["bwd_launches"] = dict(pointnet_fused.bwd_launch_counts)
         programs = getattr(agent, "_programs", None)  # none where the updates run eagerly
         summary["programs"] = programs.stats() if programs is not None else None
         summary["pointcloud_rl_tpu_modules"] = sorted(
             m for m in sys.modules if m.split(".")[0] == "pointcloud_rl_tpu")
         summary["jax_modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
-        logger.info(f"Fused PointNet kernel launches: {summary['launches']}")
+        logger.info(f"Fused PointNet kernel launches: {summary['launches']}, backward {summary['bwd_launches']}")
         if rank == 0:
             with open(osp.join(work_dir, "run_summary.json"), "w") as f:
                 json.dump(summary, f, indent=1)

@@ -839,3 +839,801 @@ extern "C" const char* pointnet_fused_error_string(int err) {
   return err == -1 ? "shape not supported by the kernel"
                    : cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+// ===================================================================== backward
+// The winner backward (sm_90a).  Replaces the plain `_winner_backward` of
+// pointcloud_rl_torch/ops/pointnet_fused.py on CUDA tensors, which follows
+// the JAX package's `_fused_bwd` (pointcloud_rl_tpu/ops/pointnet_fused.py;
+// the TPU runs it as XLA ops, no Pallas kernel).  The max-pool routes the
+// cotangent of output (b, k) through ONE winner point, so the gradient needs
+// the body on R = B * K winner rows only (K = c3): per row (b, k) the
+// kernel gathers x[b, idx[b, k]], recomputes a1, h1, a2, xhat2, n2, h2, a3,
+// xhat3, n3 in f32 with the f32 weights, and walks back to the ten
+// parameter gradients (and the row's dx when asked).  The row's cotangent is
+// g[b, k] on channel k only, so LayerNorm 3's backward is written in closed
+// form (no one-hot matrix):
+//     dy_k = g * gamma3_k * [n3_k > 0],  m1 = dy_k / c3,  m2 = dy_k * xhat3_k / c3
+//     da3_j = rstd3 * (dy_k [j == k] - m1 - xhat3_j * m2)
+// Layers 2 and 1 are the ordinary per-row backwards.
+//
+// What bounds it.  Per winner row 2 (C_in c1 + c1 c2 + c2 c3) FLOP forward
+// and about twice that backward; at the walker's shape (512 x 256 rows,
+// widths 64/128/256) 32.7 GFLOP, 0.49 ms at the card's 67 TFLOP/s of f32
+// FMA.  Everything is f32 FMA on the CUDA cores, as the JAX package's
+// backward is f32: no TF32 pass anywhere.  (A 3xTF32 `mma.sync` version of
+// the products was no faster on the H100 and moved the gradients by up to
+// 1e-3 from the plain backward's: products a few ulps apart flip relu masks
+// of pre-activations near 0.)
+//
+// What the design does about it.
+//   * A CTA owns a contiguous run of tiles of M winner rows (64 where the
+//     tile fits in shared memory, else 32).  Every per-row value of a
+//     tile stays in shared memory: x rows, h1 (later a3/xhat3/da3, then h1
+//     again and da1 in the same buffer), h2 (later dn2), xhat2 (later da2).
+//     h1 is recomputed from x for the layer-2 weight gradient rather than
+//     kept, which is what lets a 64-row tile fit.
+//   * The products are register-blocked FFMA tiles: a thread computes 8x8,
+//     8x4 or 4x4 outputs, a warp's lanes 4 x 8 of them (a 32 x 64 block at
+//     8x8), picked from the product's shape so that every warp has a block.
+//     A warp's loads of either operand then touch at most 128 bytes each,
+//     side by side; the activation rows are padded by 4 floats so that the
+//     lanes' rows fall in different banks.  W2, W3 and their transposes
+//     (written once per call by winner_bwd_prep_kernel, zero-padded to
+//     multiples of 4) stream from L2 in 16 KB chunks through four buffers:
+//     the chunks of a tile's four products form one sequence (a table in
+//     shared memory), three chunks of it in flight while one computes.
+//   * The LayerNorm passes give each row 256 / M threads that reduce with
+//     shuffles inside their group.
+//   * Parameter gradients are deterministic: each CTA sums its tiles in
+//     order into its own slice of scratch (weight gradients read, added and
+//     written back by the thread that owns the element; vector gradients in
+//     shared memory, written at the end), and winner_bwd_reduce_kernel adds
+//     the slices in CTA order.  No float atomics, so repeated calls and a
+//     CUDA graph's replays are bitwise equal.
+//   * dx, when asked: each row's dx is written to scratch and
+//     winner_bwd_dx_kernel adds them into dx in k order, one thread per
+//     (batch row, channel), so duplicate winners add deterministically.
+
+namespace {
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kBwdChunk = 4096;  // floats in each weight-chunk buffer (16 KB)
+constexpr int kBwdBufs = 4;      // weight-chunk buffers: kBwdBufs - 1 chunks in flight
+constexpr int kMaxChunks = 256;  // weight chunks a tile may read
+
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A thread tile of a product: tm x tn outputs a thread, lanes lr x (32 / lr).
+struct TileCfg {
+  int tm, tn, lr;
+};
+__host__ __device__ inline TileCfg tile_cfg(int k) {
+  return k == 0 ? TileCfg{8, 8, 4} : k == 1 ? TileCfg{8, 4, 4} : TileCfg{4, 4, 4};
+}
+__host__ __device__ inline int warp_tiles(int rows, int cols, int k) {
+  const TileCfg t = tile_cfg(k);
+  return cdiv(rows, t.lr * t.tm) * cdiv(cols, (32 / t.lr) * t.tn);
+}
+// The largest thread tile whose warp blocks still give every warp one;
+// `rows_exact`: the block's rows must divide the product's.
+__host__ __device__ inline int pick_tile(int rows, int cols, bool rows_exact) {
+  for (int k = 0; k < 2; ++k) {
+    const TileCfg t = tile_cfg(k);
+    if (rows_exact && rows % (t.lr * t.tm) != 0) continue;
+    if (warp_tiles(rows, cols, k) >= kBwdWarps) return k;
+  }
+  return 2;
+}
+
+// A prepared weight [kdp][np] as the B operand of a product, in chunks of
+// kc rows.
+struct WSpec {
+  int off, kdp, np, kc, nch;  // off: float offset in the prepared weights
+};
+__host__ __device__ inline WSpec wspec(int off, int kdp, int np) {
+  const int kc = imin(kdp, imax(4, kBwdChunk / np / 4 * 4));
+  return WSpec{off, kdp, np, kc, cdiv(kdp, kc)};
+}
+
+// Everything about a backward launch that follows from the widths: the
+// tile, the padded widths and row strides, the shared-memory map, the
+// prepared weights, their chunks, and the layout of the ten gradients.
+struct BwdPlan {
+  int c_in, c1, c2, c3;      // widths
+  int cinp, c1p, c2p, c3p;   // padded to multiples of 4
+  int ld1, ld2, ld3;         // shared-memory row strides of the width-c1, c2, c3 buffers
+  int M;                     // winner rows per tile
+  // shared-memory offsets in floats; `smem` in bytes
+  int o_w, o_tab, o_w1, o_xs, o_a, o_h2, o_x2, o_vec, o_acc, o_row, smem;
+  // prepared weights (float offsets in scratch): W2 [c1p][c2p], W3 [c2p][c3p], W3^T, W2^T
+  WSpec ws[4];
+  int wfloats;
+  int reps[4], per_tile;     // passes of each product over its chunks; chunks a tile reads
+  // gradients (float offsets): dW1 [c_in][c1], db1, dW2 [c1][c2], db2, dg2, dbe2, dW3 [c2][c3], db3, dg3, dbe3
+  int g_w1, g_b1, g_w2, g_b2, g_g2, g_be2, g_w3, g_b3, g_g3, g_be3, P;
+  int pstride;               // floats between two CTAs' partials (P rounded up to 4)
+};
+
+bool make_bwd_plan(int c_in, int c1, int c2, int c3, int M, BwdPlan* p) {
+  p->c_in = c_in; p->c1 = c1; p->c2 = c2; p->c3 = c3;
+  p->cinp = round_up(c_in, 4); p->c1p = round_up(c1, 4); p->c2p = round_up(c2, 4); p->c3p = round_up(c3, 4);
+  p->ld1 = p->c1p + 4; p->ld2 = p->c2p + 4; p->ld3 = p->c3p + 4;
+  p->M = M;
+  int w = 0;
+  p->ws[0] = wspec(w, p->c1p, p->c2p); w += p->c1p * p->c2p;  // W2
+  p->ws[1] = wspec(w, p->c2p, p->c3p); w += p->c2p * p->c3p;  // W3
+  p->ws[2] = wspec(w, p->c3p, p->c2p); w += p->c3p * p->c2p;  // W3^T
+  p->ws[3] = wspec(w, p->c2p, p->c1p); w += p->c2p * p->c1p;  // W2^T
+  p->wfloats = w;
+  p->per_tile = 0;
+  for (int k = 0; k < 4; ++k) {
+    p->reps[k] = cdiv(warp_tiles(M, p->ws[k].np, pick_tile(M, p->ws[k].np, true)), kBwdWarps);
+    p->per_tile += p->reps[k] * p->ws[k].nch;
+  }
+  const int nv = p->c1p + 3 * p->c2p + 3 * p->c3p;
+  int o = 0;
+  p->o_w = o;   o += kBwdBufs * kBwdChunk;
+  p->o_tab = o; o += 2 * kMaxChunks;
+  p->o_w1 = o;  o += p->cinp * p->c1p;
+  p->o_xs = o;  o += M * p->cinp;
+  p->o_a = o;   o += M * std::max(p->ld1, p->ld3);
+  p->o_h2 = o;  o += M * p->ld2;
+  p->o_x2 = o;  o += M * p->ld2;
+  p->o_vec = o; o += nv;
+  p->o_acc = o; o += nv;
+  p->o_row = o; o += 8 * M;
+  p->smem = 4 * o;
+  int g = 0;
+  p->g_w1 = g; g += c_in * c1;
+  p->g_b1 = g; g += c1;
+  p->g_w2 = g; g += c1 * c2;
+  p->g_b2 = g; g += c2;
+  p->g_g2 = g; g += c2;
+  p->g_be2 = g; g += c2;
+  p->g_w3 = g; g += c2 * c3;
+  p->g_b3 = g; g += c3;
+  p->g_g3 = g; g += c3;
+  p->g_be3 = g; g += c3;
+  p->P = g;
+  p->pstride = round_up(g, 4);
+  return p->smem <= kMaxSmem && p->per_tile <= kMaxChunks;
+}
+
+// The larger tile (64 or 32 rows) whose buffers fit in shared memory:
+// every width up to 256 fits at 32, and c2 = c3 = 256 (64/256/256) needs it.
+bool choose_bwd_plan(int c_in, int c1, int c2, int c3, BwdPlan* p) {
+  if (c_in < 1 || c1 < 1 || c2 < 1 || c3 < 1 || c_in > kMaxWidth || c1 > kMaxWidth || c2 > kMaxWidth ||
+      c3 > kMaxWidth)
+    return false;
+  return make_bwd_plan(c_in, c1, c2, c3, 64, p) || make_bwd_plan(c_in, c1, c2, c3, 32, p);
+}
+
+// Scratch: the prepared weights, then a partial of the gradients per CTA,
+// then (with dx) each winner row's dx.
+size_t bwd_partials_offset(const BwdPlan& p) { return round_up(p.wfloats, 64); }
+size_t bwd_dxw_offset(const BwdPlan& p, int ctas) {
+  return bwd_partials_offset(p) + round_up(ctas * p.pstride, 64);
+}
+
+struct BwdParams {
+  const void* x;         // [B, N, c_in] of T
+  const int32_t* idx;    // [B, K] winner point per output channel
+  const float* g;        // [B, K] pooled-output cotangent
+  const float *w1, *b1, *b2, *g2, *be2, *b3, *g3, *be3;
+  const float* wprep;    // written by winner_bwd_prep_kernel
+  float* part;           // [ctas][pstride]
+  float* dxw;            // [rows][c_in], or null without dx
+  int N, K, rows, tiles, per;  // per: tiles per CTA
+  BwdPlan plan;
+};
+
+// W [K, N] -> zero-padded W2 [c1p][c2p] and W3 [c2p][c3p], and the
+// transposes W3^T [c3p][c2p] and W2^T [c2p][c1p] that the backward products
+// stream.
+__global__ void winner_bwd_prep_kernel(const float* __restrict__ w2, const float* __restrict__ w3, BwdPlan p,
+                                       float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.wfloats) return;
+  float v = 0.f;
+  if (i < p.ws[1].off) {
+    const int r = i / p.c2p, c = i % p.c2p;
+    if (r < p.c1 && c < p.c2) v = w2[r * p.c2 + c];
+  } else if (i < p.ws[2].off) {
+    const int j = i - p.ws[1].off, r = j / p.c3p, c = j % p.c3p;
+    if (r < p.c2 && c < p.c3) v = w3[r * p.c3 + c];
+  } else if (i < p.ws[3].off) {
+    const int j = i - p.ws[2].off, r = j / p.c2p, c = j % p.c2p;
+    if (r < p.c3 && c < p.c2) v = w3[c * p.c3 + r];
+  } else {
+    const int j = i - p.ws[3].off, r = j / p.c1p, c = j % p.c1p;
+    if (r < p.c2 && c < p.c1) v = w2[c * p.c2 + r];
+  }
+  out[i] = v;
+}
+
+// The weight chunks a CTA reads, in the order its products read them: per
+// tile the chunks of W2, W3, W3^T and W2^T (each once per pass of its
+// product), listed in `tab` as (float offset, 16-byte copies).  `requested`
+// chunks have been asked for; chunk i goes to buffer i % kBwdBufs.
+struct WStream {
+  const float* w;
+  const int* tab;
+  float* buf;
+  int per_tile, total, requested;
+};
+
+// Ask for the next chunk (an empty group past the last): one commit group a chunk.
+__device__ __forceinline__ void stream_request(WStream& st) {
+  if (st.requested < st.total) {
+    const int e = st.requested % st.per_tile;
+    const float* src = st.w + st.tab[2 * e];
+    const int n16 = st.tab[2 * e + 1];
+    float* dst = st.buf + (st.requested % kBwdBufs) * kBwdChunk;
+    for (int i = threadIdx.x; i < n16; i += kBwdThreads) cp_async16(dst + 4 * i, src + 4 * i);
+  }
+  cp_async_commit();
+  ++st.requested;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+
+__device__ __forceinline__ float comp(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void fma4(float (&acc)[4], float a, const float4& b) {
+  acc[0] = fmaf(a, b.x, acc[0]);
+  acc[1] = fmaf(a, b.y, acc[1]);
+  acc[2] = fmaf(a, b.z, acc[2]);
+  acc[3] = fmaf(a, b.w, acc[3]);
+}
+
+// The products read their operands unguarded: a block that overhangs the
+// product's columns reads past a row's end (into the next row or the next
+// buffer of shared memory), and the outputs those reads feed are never
+// stored.
+//
+// C [M x np] = A [M x kdp] (shared memory, row stride lda) * the stream's
+// next weight `s`; `epi(r, n, float4)` stores outputs n..n+3 of row r.
+// A warp computes blocks of LR * TM rows x (32 / LR) * TN columns; a
+// thread the rows m0 + i LR + lr and the column groups n0 + g 4 LC + 4 lc.
+// `gc` counts the chunks this CTA consumed.
+template <int TM, int TN, int LR, class Epi>
+__device__ __forceinline__ void gemm_w_t(const float* A, int lda, int M, const WSpec s, WStream& st, int& gc,
+                                         Epi epi) {
+  constexpr int LC = 32 / LR, G = TN / 4, WM = LR * TM, WN = LC * TN;
+  const int np = s.np, kc = s.kc, kdp = s.kdp, nch = s.nch;
+  const int wtn = cdiv(np, WN), tiles = (M / WM) * wtn;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, lr = lane / LC, lc = lane % LC;
+  for (int rd = 0; rd < cdiv(tiles, kBwdWarps); ++rd) {
+    const int wt = rd * kBwdWarps + warp;
+    const bool active = wt < tiles;
+    const int m0 = active ? wt / wtn * WM : 0, n0 = active ? wt % wtn * WN : 0;
+    bool ok[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) ok[g] = n0 + g * 4 * LC + 4 * lc < np;
+    float acc[TM][G][4];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][g][j] = 0.f;
+    for (int c = 0; c < nch; ++c, ++gc) {
+      cp_async_wait_group<kBwdBufs - 2>();
+      __syncthreads();  // chunk gc landed; every thread is done with chunk gc - 1's buffer
+      stream_request(st);  // chunk gc + kBwdBufs - 1, into that buffer
+      if (!active) continue;
+      const float* B = st.buf + (gc % kBwdBufs) * kBwdChunk + n0 + 4 * lc;
+      const float* Ar = A + (m0 + lr) * lda + c * kc;
+      const int kn = imin(kc, kdp - c * kc);
+#pragma unroll 1
+      for (int kk = 0; kk < kn; kk += 4) {
+        float4 a[TM];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) a[i] = ld4(Ar + i * LR * lda + kk);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float4 b[G];
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+            b[g] = ld4(B + (kk + q) * np + g * 4 * LC);
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+#pragma unroll
+            for (int g = 0; g < G; ++g) fma4(acc[i][g], comp(a[i], q), b[g]);
+        }
+      }
+    }
+    if (active) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          if (ok[g])
+            epi(m0 + i * LR + lr, n0 + g * 4 * LC + 4 * lc,
+                make_float4(acc[i][g][0], acc[i][g][1], acc[i][g][2], acc[i][g][3]));
+    }
+  }
+}
+
+template <class Epi>
+__device__ __forceinline__ void gemm_w(const float* A, int lda, int M, const WSpec s, WStream& st, int& gc, Epi epi) {
+  switch (pick_tile(M, s.np, true)) {
+    case 0: gemm_w_t<8, 8, 4>(A, lda, M, s, st, gc, epi); break;
+    case 1: gemm_w_t<8, 4, 4>(A, lda, M, s, st, gc, epi); break;
+    default: gemm_w_t<4, 4, 4>(A, lda, M, s, st, gc, epi);
+  }
+}
+
+// out [n1 x n2] (this CTA's partial, row-major) += A^T B over the tile's M
+// rows: A [M x n1p] and B [M x n2p] in shared memory.  A warp computes
+// blocks of LR * TM x (32 / LR) * TN outputs; a thread the output rows
+// m0 + ga 4 LR + 4 lr + e and columns n0 + gb 4 LC + 4 lc + e.  `first`: the
+// CTA's first tile, whose sum is written without reading.
+template <int TM, int TN, int LR>
+__device__ __forceinline__ void gemm_dw_t(const float* A, int lda, int n1p, const float* Bm, int ldb, int n2p,
+                                          int M, float* out, int n1, int n2, bool first) {
+  constexpr int LC = 32 / LR, GA = TM / 4, GB = TN / 4, WM = LR * TM, WN = LC * TN;
+  const int wtn = cdiv(n2p, WN), tiles = cdiv(n1p, WM) * wtn;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, lr = lane / LC, lc = lane % LC;
+  const bool vec = n2 % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  for (int wt = warp; wt < tiles; wt += kBwdWarps) {
+    const int m0 = wt / wtn * WM + 4 * lr, n0 = wt % wtn * WN + 4 * lc;
+    float acc[TM][GB][4];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int g = 0; g < GB; ++g)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][g][j] = 0.f;
+#pragma unroll 1
+    for (int r = 0; r < M; ++r) {
+      float4 a[GA], b[GB];
+#pragma unroll
+      for (int g = 0; g < GA; ++g) a[g] = ld4(A + r * lda + m0 + g * 4 * LR);
+#pragma unroll
+      for (int g = 0; g < GB; ++g) b[g] = ld4(Bm + r * ldb + n0 + g * 4 * LC);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int g = 0; g < GB; ++g) fma4(acc[i][g], comp(a[i / 4], i % 4), b[g]);
+    }
+    // Read every old value first, then write: the loads are all in flight at once.
+    if (vec) {
+      float4 old[TM][GB];
+      if (!first) {
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int g = 0; g < GB; ++g) {
+            const int ii = m0 + i / 4 * 4 * LR + i % 4, jj = n0 + g * 4 * LC;
+            if (ii < n1 && jj < n2) old[i][g] = ld4(out + static_cast<size_t>(ii) * n2 + jj);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int g = 0; g < GB; ++g) {
+          const int ii = m0 + i / 4 * 4 * LR + i % 4, jj = n0 + g * 4 * LC;
+          if (ii >= n1 || jj >= n2) continue;
+          float4 v = make_float4(acc[i][g][0], acc[i][g][1], acc[i][g][2], acc[i][g][3]);
+          if (!first) v = make_float4(old[i][g].x + v.x, old[i][g].y + v.y, old[i][g].z + v.z, old[i][g].w + v.w);
+          st4(out + static_cast<size_t>(ii) * n2 + jj, v);
+        }
+    } else {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int g = 0; g < GB; ++g)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int ii = m0 + i / 4 * 4 * LR + i % 4, jj = n0 + g * 4 * LC + j;
+            if (ii < n1 && jj < n2) {
+              float* o = out + static_cast<size_t>(ii) * n2 + jj;
+              *o = first ? acc[i][g][j] : *o + acc[i][g][j];
+            }
+          }
+    }
+  }
+}
+
+__device__ __forceinline__ void gemm_dw(const float* A, int lda, int n1p, const float* Bm, int ldb, int n2p, int M,
+                                        float* out, int n1, int n2, bool first) {
+  switch (pick_tile(n1p, n2p, false)) {
+    case 0: gemm_dw_t<8, 8, 4>(A, lda, n1p, Bm, ldb, n2p, M, out, n1, n2, first); break;
+    case 1: gemm_dw_t<8, 4, 4>(A, lda, n1p, Bm, ldb, n2p, M, out, n1, n2, first); break;
+    default: gemm_dw_t<4, 4, 4>(A, lda, n1p, Bm, ldb, n2p, M, out, n1, n2, first);
+  }
+}
+
+// o[0..3] <- v where o > 0 (the relu's mask: h > 0 exactly where its input is), else 0.
+__device__ __forceinline__ void mask4(float* o, const float4& v) {
+  const float4 h = ld4(o);
+  st4(o, make_float4(h.x > 0.f ? v.x : 0.f, h.y > 0.f ? v.y : 0.f, h.z > 0.f ? v.z : 0.f, h.w > 0.f ? v.w : 0.f));
+}
+
+// h1 = relu(x W1 + b1) on the tile's rows, [M][ld1]; a thread computes 4
+// columns of a row (W1 and b1 zero-padded in shared memory).
+__device__ __forceinline__ void bwd_layer1(const BwdPlan& p, const float* xs, const float* w1s, const float* b1,
+                                           float* h1) {
+  const int q = p.c1p / 4;
+  for (int i = threadIdx.x; i < p.M * q; i += kBwdThreads) {
+    const int r = i / q, j = 4 * (i % q);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int c = 0; c < p.c_in; ++c) fma4(acc, xs[r * p.cinp + c], ld4(w1s + c * p.c1p + j));
+    const float4 bias = ld4(b1 + j);
+    st4(h1 + r * p.ld1 + j, make_float4(fmaxf(acc[0] + bias.x, 0.f), fmaxf(acc[1] + bias.y, 0.f),
+                                        fmaxf(acc[2] + bias.z, 0.f), fmaxf(acc[3] + bias.w, 0.f)));
+  }
+}
+
+// The LayerNorm passes: a row has `tpr` = kBwdThreads / M threads, aligned
+// lanes of one warp; thread `sub` of them takes the column groups 4 sub,
+// 4 (sub + tpr), ...
+__device__ __forceinline__ float group_sum(float v, int tpr) {
+  for (int o = 1; o < tpr; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Mean and 1 / sqrt(var + eps) of the c columns of row `a` (its padding is 0).
+__device__ __forceinline__ void row_stats(const float* a, int c, int cp, int sub, int tpr, float& mu, float& rstd) {
+  float s = 0.f;
+  for (int j = 4 * sub; j < cp; j += 4 * tpr) {
+    const float4 v = ld4(a + j);
+    s += (v.x + v.y) + (v.z + v.w);
+  }
+  mu = group_sum(s, tpr) / c;
+  float v2 = 0.f;
+  for (int j = 4 * sub; j < cp; j += 4 * tpr) {
+    const float4 v = ld4(a + j);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float d = j + e < c ? comp(v, e) - mu : 0.f;
+      v2 += d * d;
+    }
+  }
+  rstd = 1.f / sqrtf(group_sum(v2, tpr) / c + kLnEps);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads, 1) winner_bwd_kernel(__grid_constant__ const BwdParams prm) {
+  extern __shared__ __align__(16) float sm[];
+  const BwdPlan& p = prm.plan;
+  const int M = p.M, c1 = p.c1, c2 = p.c2, c3 = p.c3, c1p = p.c1p, c2p = p.c2p, c3p = p.c3p;
+  const int ld1 = p.ld1, ld2 = p.ld2, ld3 = p.ld3;
+  int* tab = reinterpret_cast<int*>(sm + p.o_tab);
+  float* w1s = sm + p.o_w1;  // W1 [cinp][c1p]
+  float* xs = sm + p.o_xs;   // [M][cinp] x rows
+  float* ta = sm + p.o_a;    // h1 [M][ld1] | a3 -> da3 [M][ld3] | h1 -> da1 [M][ld1]
+  float* h2 = sm + p.o_h2;   // h2 -> dn2 [M][ld2]
+  float* x2 = sm + p.o_x2;   // a2 -> xhat2 -> da2 [M][ld2]
+  float* vb1 = sm + p.o_vec;
+  float *vb2 = vb1 + c1p, *vg2 = vb2 + c2p, *vbe2 = vg2 + c2p;
+  float *vb3 = vbe2 + c2p, *vg3 = vb3 + c3p, *vbe3 = vg3 + c3p;
+  float* ab1 = sm + p.o_acc;
+  float *ab2 = ab1 + c1p, *ag2 = ab2 + c2p, *abe2 = ag2 + c2p;
+  float *ab3 = abe2 + c2p, *ag3 = ab3 + c3p, *abe3 = ag3 + c3p;
+  int* rk = reinterpret_cast<int*>(sm + p.o_row);  // per row: channel k, -1 past the last row
+  float *rg = sm + p.o_row + M, *rrstd2 = rg + M, *rm1 = rrstd2 + M, *rm2 = rm1 + M;
+  float *rdn3 = rm2 + M, *rxk = rdn3 + M;
+  const int tpr = kBwdThreads / M, lrow = threadIdx.x / tpr, sub = threadIdx.x % tpr;
+
+  const int t_begin = blockIdx.x * prm.per, t_end = min(prm.tiles, t_begin + prm.per);
+  float* part = prm.part + static_cast<size_t>(blockIdx.x) * p.pstride;
+  for (int e = threadIdx.x; e < p.per_tile; e += kBwdThreads) {
+    int w = e, k = 0;
+    while (w >= p.reps[k] * p.ws[k].nch) {
+      w -= p.reps[k] * p.ws[k].nch;
+      ++k;
+    }
+    const WSpec& s = p.ws[k];
+    const int r0 = w % s.nch * s.kc;
+    tab[2 * e] = s.off + r0 * s.np;
+    tab[2 * e + 1] = imin(s.kc, s.kdp - r0) * s.np / 4;
+  }
+  __syncthreads();
+  WStream st{prm.wprep, tab, sm + p.o_w, p.per_tile, p.per_tile * imax(0, t_end - t_begin), 0};
+  for (int i = 0; i < kBwdBufs - 1; ++i) stream_request(st);
+  int gc = 0;
+
+  for (int i = threadIdx.x; i < p.cinp * c1p; i += kBwdThreads) {
+    const int c = i / c1p, j = i % c1p;
+    w1s[i] = c < p.c_in && j < c1 ? prm.w1[c * c1 + j] : 0.f;
+  }
+  for (int j = threadIdx.x; j < c1p; j += kBwdThreads) {
+    vb1[j] = j < c1 ? prm.b1[j] : 0.f;
+    ab1[j] = 0.f;
+  }
+  for (int j = threadIdx.x; j < c2p; j += kBwdThreads) {
+    const bool ok = j < c2;
+    vb2[j] = ok ? prm.b2[j] : 0.f;
+    vg2[j] = ok ? prm.g2[j] : 0.f;
+    vbe2[j] = ok ? prm.be2[j] : 0.f;
+    ab2[j] = ag2[j] = abe2[j] = 0.f;
+  }
+  for (int j = threadIdx.x; j < c3p; j += kBwdThreads) {
+    const bool ok = j < c3;
+    vb3[j] = ok ? prm.b3[j] : 0.f;
+    vg3[j] = ok ? prm.g3[j] : 0.f;
+    vbe3[j] = ok ? prm.be3[j] : 0.f;
+    ab3[j] = ag3[j] = abe3[j] = 0.f;
+  }
+
+  const T* x = static_cast<const T*>(prm.x);
+  for (int t = t_begin; t < t_end; ++t) {
+    const bool first = t == t_begin;
+    // Gather the tile's winner rows of x.  Rows past the last are zeros
+    // with a zero cotangent: they add nothing.
+    for (int i = threadIdx.x; i < M * p.cinp; i += kBwdThreads) {
+      const int r = i / p.cinp, c = i % p.cinp, row = t * M + r;
+      float v = 0.f;
+      if (row < prm.rows && c < p.c_in) {
+        const int b = row / prm.K;
+        v = to_f32(x[(static_cast<size_t>(b) * prm.N + prm.idx[row]) * p.c_in + c]);
+      }
+      xs[i] = v;
+    }
+    for (int r = threadIdx.x; r < M; r += kBwdThreads) {
+      const int row = t * M + r;
+      rk[r] = row < prm.rows ? row % prm.K : -1;
+      rg[r] = row < prm.rows ? prm.g[row] : 0.f;
+    }
+    __syncthreads();
+    bwd_layer1(p, xs, w1s, vb1, ta);
+    __syncthreads();
+    // a2 = h1 W2 + b2
+    gemm_w(ta, ld1, M, p.ws[0], st, gc, [&](int r, int n, float4 v) {
+      const float4 bias = ld4(vb2 + n);
+      st4(x2 + r * ld2 + n, make_float4(v.x + bias.x, v.y + bias.y, v.z + bias.z, v.w + bias.w));
+    });
+    __syncthreads();
+    // LayerNorm 2: xhat2 in place, h2 = relu(xhat2 g2 + be2)
+    {
+      float* a = x2 + lrow * ld2;
+      float* h = h2 + lrow * ld2;
+      float mu, rstd;
+      row_stats(a, c2, c2p, sub, tpr, mu, rstd);
+      for (int j = 4 * sub; j < c2p; j += 4 * tpr) {
+        const float4 v = ld4(a + j);
+        float xh[4], hh[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          xh[e] = j + e < c2 ? (comp(v, e) - mu) * rstd : 0.f;
+          hh[e] = fmaxf(__fadd_rn(__fmul_rn(xh[e], vg2[j + e]), vbe2[j + e]), 0.f);
+        }
+        st4(a + j, make_float4(xh[0], xh[1], xh[2], xh[3]));
+        st4(h + j, make_float4(hh[0], hh[1], hh[2], hh[3]));
+      }
+      if (sub == 0) rrstd2[lrow] = rstd;
+    }
+    __syncthreads();
+    // a3 = h2 W3 + b3
+    gemm_w(h2, ld2, M, p.ws[1], st, gc, [&](int r, int n, float4 v) {
+      const float4 bias = ld4(vb3 + n);
+      st4(ta + r * ld3 + n, make_float4(v.x + bias.x, v.y + bias.y, v.z + bias.z, v.w + bias.w));
+    });
+    __syncthreads();
+    // LayerNorm 3 and its backward in closed form: da3 in place of a3.
+    {
+      float* a = ta + lrow * ld3;
+      float mu, rstd;
+      row_stats(a, c3, c3p, sub, tpr, mu, rstd);
+      const int k = rk[lrow];
+      float dn3 = 0.f, xk = 0.f, dy = 0.f;
+      if (k >= 0) {
+        xk = (a[k] - mu) * rstd;
+        dn3 = __fadd_rn(__fmul_rn(xk, vg3[k]), vbe3[k]) > 0.f ? rg[lrow] : 0.f;
+        dy = dn3 * vg3[k];
+      }
+      __syncwarp();  // the row's threads have read a3_k before it is overwritten
+      const float m1 = dy / c3, m2 = dy * xk / c3;
+      for (int j = 4 * sub; j < c3p; j += 4 * tpr) {
+        const float4 v = ld4(a + j);
+        float da[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j + e;
+          const float xh = (comp(v, e) - mu) * rstd;
+          da[e] = col < c3 ? rstd * ((col == k ? dy : 0.f) - m1 - xh * m2) : 0.f;
+        }
+        st4(a + j, make_float4(da[0], da[1], da[2], da[3]));
+      }
+      if (sub == 0) {
+        rdn3[lrow] = dn3;
+        rxk[lrow] = xk;
+      }
+    }
+    __syncthreads();
+    // db3, and dg3 / dbe3 of the rows' own channels, in row order
+    for (int j = threadIdx.x; j < c3; j += kBwdThreads) {
+      float sd = 0.f, sg = 0.f, sb = 0.f;
+      for (int r = 0; r < M; ++r) {
+        sd += ta[r * ld3 + j];
+        if (rk[r] == j) {
+          sg += rdn3[r] * rxk[r];
+          sb += rdn3[r];
+        }
+      }
+      ab3[j] += sd;
+      ag3[j] += sg;
+      abe3[j] += sb;
+    }
+    // dW3 += h2^T da3
+    gemm_dw(h2, ld2, c2p, ta, ld3, c3p, M, part + p.g_w3, c2, c3, first);
+    __syncthreads();
+    // dn2 = (da3 W3^T) [n2 > 0], in place of h2
+    gemm_w(ta, ld3, M, p.ws[2], st, gc, [&](int r, int n, float4 v) { mask4(h2 + r * ld2 + n, v); });
+    __syncthreads();
+    // LayerNorm 2 backward: the row means, then da2 in place of xhat2
+    {
+      const float* dn = h2 + lrow * ld2;
+      const float* xh = x2 + lrow * ld2;
+      float s1 = 0.f, s2 = 0.f;
+      for (int j = 4 * sub; j < c2p; j += 4 * tpr) {
+        const float4 d = ld4(dn + j), xv = ld4(xh + j);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float dy = comp(d, e) * vg2[j + e];
+          s1 += dy;
+          s2 += dy * comp(xv, e);
+        }
+      }
+      s1 = group_sum(s1, tpr);
+      s2 = group_sum(s2, tpr);
+      if (sub == 0) {
+        rm1[lrow] = s1 / c2;
+        rm2[lrow] = s2 / c2;
+      }
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < c2; j += kBwdThreads) {
+      const float gj = vg2[j];
+      float sd = 0.f, sg = 0.f, sb = 0.f;
+      for (int r = 0; r < M; ++r) {
+        const float dn = h2[r * ld2 + j], xh = x2[r * ld2 + j];
+        const float da = rrstd2[r] * (dn * gj - rm1[r] - xh * rm2[r]);
+        x2[r * ld2 + j] = da;
+        sd += da;
+        sg += dn * xh;
+        sb += dn;
+      }
+      ab2[j] += sd;
+      ag2[j] += sg;
+      abe2[j] += sb;
+    }
+    // h1 again, where da3 was (the da3 product is done)
+    bwd_layer1(p, xs, w1s, vb1, ta);
+    __syncthreads();
+    // dW2 += h1^T da2
+    gemm_dw(ta, ld1, c1p, x2, ld2, c2p, M, part + p.g_w2, c1, c2, first);
+    __syncthreads();
+    // da1 = (da2 W2^T) [a1 > 0], in place of h1
+    gemm_w(x2, ld2, M, p.ws[3], st, gc, [&](int r, int n, float4 v) { mask4(ta + r * ld1 + n, v); });
+    __syncthreads();
+    for (int j = threadIdx.x; j < c1; j += kBwdThreads) {
+      float sd = 0.f;
+      for (int r = 0; r < M; ++r) sd += ta[r * ld1 + j];
+      ab1[j] += sd;
+    }
+    // dW1 += x^T da1
+    gemm_dw(xs, p.cinp, p.cinp, ta, ld1, c1p, M, part + p.g_w1, p.c_in, c1, first);
+    if (prm.dxw != nullptr) {
+      for (int i = threadIdx.x; i < M * p.c_in; i += kBwdThreads) {
+        const int r = i / p.c_in, c = i % p.c_in, row = t * M + r;
+        if (row >= prm.rows) continue;
+        float acc = 0.f;
+        for (int j = 0; j < c1; ++j) acc = fmaf(ta[r * ld1 + j], w1s[c * c1p + j], acc);
+        prm.dxw[static_cast<size_t>(row) * p.c_in + c] = acc;
+      }
+    }
+    __syncthreads();  // the next tile overwrites xs and ta
+  }
+
+  for (int j = threadIdx.x; j < c1; j += kBwdThreads) part[p.g_b1 + j] = ab1[j];
+  for (int j = threadIdx.x; j < c2; j += kBwdThreads) {
+    part[p.g_b2 + j] = ab2[j];
+    part[p.g_g2 + j] = ag2[j];
+    part[p.g_be2 + j] = abe2[j];
+  }
+  for (int j = threadIdx.x; j < c3; j += kBwdThreads) {
+    part[p.g_b3 + j] = ab3[j];
+    part[p.g_g3 + j] = ag3[j];
+    part[p.g_be3 + j] = abe3[j];
+  }
+}
+
+// The CTAs' partials -> the gradients, added in CTA order.
+__global__ void winner_bwd_reduce_kernel(const float* __restrict__ part, int ctas, int pstride, int P,
+                                         float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= P) return;
+  float s = part[i];
+  for (int c = 1; c < ctas; ++c) s += part[static_cast<size_t>(c) * pstride + i];
+  out[i] = s;
+}
+
+// dx [B, N, c_in] (f32, zeroed) += each winner row's dx at its point, in k
+// order: one thread per (batch row, channel) owns that column of dx.
+__global__ void winner_bwd_dx_kernel(const float* __restrict__ dxw, const int32_t* __restrict__ idx, int B, int N,
+                                     int K, int c_in, float* __restrict__ dx) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B * c_in) return;
+  const int b = i / c_in, c = i % c_in;
+  for (int k = 0; k < K; ++k) {
+    const size_t row = static_cast<size_t>(b) * K + k;
+    dx[(static_cast<size_t>(b) * N + idx[row]) * c_in + c] += dxw[row * c_in + c];
+  }
+}
+
+template <typename T>
+int launch_bwd_typed(const BwdParams& prm, const float* w2, const float* w3, float* wprep, int ctas, int B,
+                     float* grads, float* dx, cudaStream_t st) {
+  const BwdPlan& p = prm.plan;
+  winner_bwd_prep_kernel<<<(p.wfloats + 255) / 256, 256, 0, st>>>(w2, w3, p, wprep);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(winner_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  winner_bwd_kernel<T><<<ctas, kBwdThreads, p.smem, st>>>(prm);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  winner_bwd_reduce_kernel<<<(p.P + 255) / 256, 256, 0, st>>>(prm.part, ctas, p.pstride, p.P, grads);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || dx == nullptr) return static_cast<int>(err);
+  winner_bwd_dx_kernel<<<(B * p.c_in + 255) / 256, 256, 0, st>>>(prm.dxw, prm.idx, B, prm.N, prm.K, p.c_in, dx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Winner rows per tile of the backward for these widths, or 0 if it does
+// not take them.
+extern "C" int pointnet_fused_bwd_tile_rows(int c_in, int c1, int c2, int c3) {
+  BwdPlan p;
+  return choose_bwd_plan(c_in, c1, c2, c3, &p) ? p.M : 0;
+}
+
+extern "C" long long pointnet_fused_bwd_scratch_bytes(int c_in, int c1, int c2, int c3, int ctas, int rows,
+                                                      int with_dx) {
+  BwdPlan p;
+  if (!choose_bwd_plan(c_in, c1, c2, c3, &p) || ctas < 1 || rows < 1) return -1;
+  return 4ll * (static_cast<long long>(bwd_dxw_offset(p, ctas)) +
+                (with_dx ? static_cast<long long>(rows) * c_in : 0));
+}
+
+// The ten parameter gradients, f32, into `grads` in the order (and shapes)
+// dW1 [c_in, c1], db1, dW2 [c1, c2], db2, dg2, dbe2, dW3 [c2, c3], db3, dg3,
+// dbe3, packed; with `dx` non-null (f32 [B, N, c_in], zeroed) the input
+// gradient is added into it.  x is [B, N, c_in] of float (bf16 = 0) or
+// __nv_bfloat16 (bf16 = 1); every weight is f32.  `ctas` CTAs take `per`
+// tiles of winner rows each (the last CTA the rest), as the caller chose
+// them; `scratch` holds pointnet_fused_bwd_scratch_bytes(..., ctas, ...)
+// bytes.  Returns -1 for a shape it does not take or a split that leaves a
+// tile or a CTA without work, else the cudaError_t of the launches.
+extern "C" int pointnet_fused_bwd(int bf16, const void* x, int B, int N, int c_in, const int32_t* idx,
+                                  const float* g, const float* w1, const float* b1, int c1, const float* w2,
+                                  const float* b2, const float* g2, const float* be2, int c2, const float* w3,
+                                  const float* b3, const float* g3, const float* be3, int c3, int ctas,
+                                  int per, void* scratch, float* grads, float* dx, void* stream) {
+  BwdPlan plan;
+  if (B < 1 || N < 1 || ctas < 1 || per < 1 || !choose_bwd_plan(c_in, c1, c2, c3, &plan)) return -1;
+  const int rows = B * c3;
+  const int tiles = cdiv(rows, plan.M);
+  if (static_cast<long long>(ctas) * per < tiles || static_cast<long long>(ctas - 1) * per >= tiles) return -1;
+  float* s = static_cast<float*>(scratch);
+  const BwdParams prm{x, idx, g, w1, b1, b2, g2, be2, b3, g3, be3, s, s + bwd_partials_offset(plan),
+                      dx != nullptr ? s + bwd_dxw_offset(plan, ctas) : nullptr, N, c3, rows, tiles, per, plan};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_bwd_typed<__nv_bfloat16>(prm, w2, w3, s, ctas, B, grads, dx, st)
+              : launch_bwd_typed<float>(prm, w2, w3, s, ctas, B, grads, dx, st);
+}

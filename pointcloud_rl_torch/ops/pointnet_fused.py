@@ -27,8 +27,12 @@ Backward: the max-pool routes each output channel's gradient through ONE
 winner point (the first-index argmax, torch ``max`` semantics), so
 ``FusedPointNetBody`` saves the winner indices, gathers the [B, C_out]
 winner rows, recomputes the body on them in f32 and walks relu -> LN ->
-matmul back to dx and the ten parameter gradients (``_winner_backward``,
-plain PyTorch ops as in the JAX package).
+matmul back to dx and the ten parameter gradients.  A CPU tensor runs
+``_winner_backward`` (plain PyTorch ops as in the JAX package, and the
+kernel's oracle); a CUDA tensor launches the winner-backward kernel of the
+same source (``_winner_backward_kernel``: every per-row value stays on the
+SM, the parameter gradients are summed per CTA and reduced in a fixed
+order) or raises, and computes dx only when autograd asks for it.
 """
 
 from __future__ import annotations
@@ -50,9 +54,15 @@ _LIB_NAME = "pointnet_fused"
 launch_counts: Dict[str, int] = {"pointnet_fused_fwd_idx": 0, "pointnet_fused_fwd_max": 0}
 
 
+# The backward kernel's launches, apart: readers of ``launch_counts`` hold
+# its total to the forward launches they find in a trace.
+bwd_launch_counts: Dict[str, int] = {"pointnet_fused_bwd": 0}
+
+
 def reset_launch_counts() -> None:
-    for key in launch_counts:
-        launch_counts[key] = 0
+    for counts in (launch_counts, bwd_launch_counts):
+        for key in counts:
+            counts[key] = 0
 
 
 # ------------------------------------------------------------ plain version
@@ -119,6 +129,13 @@ def load_library(verbose: bool = False) -> ctypes.CDLL:
         lib.pointnet_fused_tile_rows.restype = ci
         lib.pointnet_fused_scratch_bytes.argtypes = [ci] * 7
         lib.pointnet_fused_scratch_bytes.restype = ctypes.c_longlong
+        lib.pointnet_fused_bwd.argtypes = [ci, vp, ci, ci, ci, vp, vp, vp, vp, ci, vp, vp, vp, vp, ci,
+                                           vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp]
+        lib.pointnet_fused_bwd.restype = ci
+        lib.pointnet_fused_bwd_tile_rows.argtypes = [ci] * 4
+        lib.pointnet_fused_bwd_tile_rows.restype = ci
+        lib.pointnet_fused_bwd_scratch_bytes.argtypes = [ci] * 7
+        lib.pointnet_fused_bwd_scratch_bytes.restype = ctypes.c_longlong
         lib.pointnet_fused_error_string.argtypes = [ci]
         lib.pointnet_fused_error_string.restype = ctypes.c_char_p
         lib._pcrl_bound = True
@@ -180,6 +197,17 @@ def choose_chunks(B: int, N: int, tile_rows: int, n_sm: int) -> int:
         if best_cost is None or cost < best_cost:
             best_cost, best = cost, chunks
     return best
+
+
+def choose_bwd_ctas(rows: int, tile_rows: int, n_sm: int) -> Tuple[int, int]:
+    """(CTAs, tiles per CTA) of the winner backward: the least number of
+    tiles per CTA when the tiles of ``rows`` winner rows are shared over
+    ``n_sm`` SMs, and the fewest CTAs that take them at that number (fewer
+    CTAs, fewer partial sums to reduce).  The kernel runs this split as
+    given and sizes nothing by another."""
+    tiles = -(-rows // tile_rows)
+    per = -(-tiles // n_sm)
+    return -(-tiles // per), per
 
 
 @functools.lru_cache(maxsize=None)
@@ -246,18 +274,19 @@ def _ln_bwd(dn, xhat, rstd, gamma):
                    - xhat * (dy * xhat).mean(dim=-1, keepdim=True))
 
 
-def _winner_backward(x, params, idx, g):
+def _winner_backward(x, params, idx, g, dtype=torch.float32):
     """Gradient via the winner rows only.
 
     x: [B, N, C_in]; idx: [B, K] winner point per output channel (K ==
-    C_out); g: [B, K] pooled-output cotangent.  All math in f32."""
-    (w1, b1, w2, b2, g2, be2, w3, b3, g3, be3) = (p.float() for p in params)
+    C_out); g: [B, K] pooled-output cotangent.  All math in ``dtype``: f32,
+    as the JAX package; float64 is the tests' exact reference."""
+    (w1, b1, w2, b2, g2, be2, w3, b3, g3, be3) = (p.to(dtype) for p in params)
     B, N, C_in = x.shape
     K = idx.shape[-1]
-    g = g.float()
+    g = g.to(dtype)
     idx = idx.long()
     batch = torch.arange(B, device=x.device)[:, None]
-    rows = x.reshape(B * N, C_in)[(batch * N + idx).reshape(-1)].float()  # [B*K, C_in]
+    rows = x.reshape(B * N, C_in)[(batch * N + idx).reshape(-1)].to(dtype)  # [B*K, C_in]
 
     # recompute the chain on winner rows, keeping residuals (f32)
     a1 = rows @ w1 + b1
@@ -275,7 +304,7 @@ def _winner_backward(x, params, idx, g):
     n3 = xhat3 * g3 + be3
 
     # dh3 for winner row k is g[b, k] on channel k only
-    eye = torch.eye(K, device=x.device, dtype=torch.float32)
+    eye = torch.eye(K, device=x.device, dtype=dtype)
     dh3 = (g[:, :, None] * eye[None]).reshape(B * K, K)
 
     dn3 = dh3 * (n3 > 0)
@@ -295,11 +324,59 @@ def _winner_backward(x, params, idx, g):
     return dx, dparams
 
 
+def _winner_backward_kernel(x, params, idx, g, with_dx: bool):
+    """``_winner_backward`` on CUDA tensors, by the winner-backward kernel;
+    dx only ``with_dx`` (else None).  Raises on what the kernel does not take."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x has dtype {x.dtype}; the winner backward takes float32 or bfloat16")
+    x = x.contiguous()
+    B, N, c_in = x.shape
+    (w1, b1, w2, b2, g2, be2, w3, b3, g3, be3) = params
+    c1, c2, c3 = w1.shape[-1], w2.shape[-1], w3.shape[-1]
+    dev, f32 = x.device, torch.float32
+    for name, t, shape in (("w1", w1, (c_in, c1)), ("w2", w2, (c1, c2)), ("w3", w3, (c2, c3))):
+        _check(t, name, dev, f32, shape)
+    for name, t, n in (("b1", b1, c1), ("b2", b2, c2), ("g2", g2, c2), ("be2", be2, c2),
+                       ("b3", b3, c3), ("g3", g3, c3), ("be3", be3, c3)):
+        _check(t, name, dev, f32, (n,))
+    _check(idx, "idx", dev, torch.int32, (B, c3))
+    g = g.to(f32).contiguous()
+    _check(g, "g", dev, f32, (B, c3))
+
+    lib = load_library()
+    tile_rows = lib.pointnet_fused_bwd_tile_rows(c_in, c1, c2, c3)
+    if tile_rows <= 0:
+        raise ValueError(f"unsupported shape: C_in {c_in}, widths {c1}/{c2}/{c3} "
+                         "(the winner backward takes widths 1..256)")
+    rows = B * c3
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    ctas, per = choose_bwd_ctas(rows, tile_rows, _sm_count(index))
+    scratch = torch.empty(lib.pointnet_fused_bwd_scratch_bytes(c_in, c1, c2, c3, ctas, rows, int(with_dx)),
+                          device=dev, dtype=torch.uint8)
+    sizes = [p.numel() for p in params]
+    grads = torch.empty(sum(sizes), device=dev, dtype=f32)  # the kernel packs the ten in order
+    dx = torch.zeros((B, N, c_in), device=dev, dtype=f32) if with_dx else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pointnet_fused_bwd(int(x.dtype == torch.bfloat16), x.data_ptr(), B, N, c_in, idx.data_ptr(),
+                                     g.data_ptr(), w1.data_ptr(), b1.data_ptr(), c1, w2.data_ptr(), b2.data_ptr(),
+                                     g2.data_ptr(), be2.data_ptr(), c2, w3.data_ptr(), b3.data_ptr(),
+                                     g3.data_ptr(), be3.data_ptr(), c3, ctas, per, scratch.data_ptr(),
+                                     grads.data_ptr(), None if dx is None else dx.data_ptr(), stream)
+    if err != 0:
+        msg = lib.pointnet_fused_error_string(err).decode()
+        raise RuntimeError(f"pointnet_fused_bwd launch failed: {msg} (cudaError {err})")
+    bwd_launch_counts["pointnet_fused_bwd"] += 1
+    dparams = tuple(d.view(p.shape) for d, p in zip(grads.split(sizes), params))
+    return (None if dx is None else dx.to(x.dtype)), dparams
+
+
 class FusedPointNetBody(torch.autograd.Function):
     """Pooled body with the winner-gather backward.
 
     The forward launches the with-argmax kernel (plain version on CPU) and
-    saves the winner indices; the backward is ``_winner_backward``."""
+    saves the winner indices; the backward is the winner-backward kernel on
+    CUDA tensors and ``_winner_backward`` on any other."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, g2, be2, w3, b3, g3, be3, compute_dtype=None):
@@ -311,7 +388,10 @@ class FusedPointNetBody(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, idx, *params = ctx.saved_tensors
-        dx, dparams = _winner_backward(x, params, idx, g)
+        if x.device.type == "cuda":
+            dx, dparams = _winner_backward_kernel(x, params, idx, g, ctx.needs_input_grad[0])
+        else:
+            dx, dparams = _winner_backward(x, params, idx, g)
         return (dx if ctx.needs_input_grad[0] else None, *dparams, None)
 
 

@@ -243,3 +243,178 @@ def test_copies_in_different_chunks_take_the_first_index_on_gpu(dtype):
     torch.cuda.synchronize()
     assert int(idx.max()) < 400
     assert torch.equal(idx, want)
+
+
+def test_launch_counts_keep_the_forward_keys_alone():
+    """The roofline reader holds the forward launches it finds in a trace to
+    the sum of every value of ``launch_counts``: the backward counts apart."""
+    assert set(tpf.launch_counts) == {"pointnet_fused_fwd_idx", "pointnet_fused_fwd_max"}
+    assert set(tpf.bwd_launch_counts) == {"pointnet_fused_bwd"}
+
+
+def test_cpu_backward_is_the_plain_one_and_never_launches():
+    """CPU tensors run ``_winner_backward`` unchanged: autograd's gradients
+    are its output, and the backward kernel's counter stays at 0."""
+    tpf.reset_launch_counts()
+    x, params = _inputs(7, 3, 60, 9)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in [x] + params]
+    out = tpf.fused_pointnet_body(leaves[0], tuple(leaves[1:]))
+    g = torch.from_numpy(np.random.RandomState(8).randn(*out.shape).astype(np.float32))
+    out.backward(g)
+    _, idx = tpf._forward_plain(leaves[0].detach(), tuple(p.detach() for p in leaves[1:]), None)
+    want_dx, want = tpf._winner_backward(leaves[0].detach(), tuple(p.detach() for p in leaves[1:]), idx, g)
+    for leaf, ref in zip(leaves, (want_dx,) + want):
+        assert torch.equal(leaf.grad, ref)
+    assert tpf.bwd_launch_counts == {"pointnet_fused_bwd": 0}
+    assert tpf.launch_counts == {"pointnet_fused_fwd_idx": 0, "pointnet_fused_fwd_max": 0}
+
+
+def test_plain_backward_in_float64_is_the_f32_one_to_rounding():
+    """``_winner_backward`` in float64 (the card tests' exact reference)
+    computes what its f32 default does, to f32 rounding, and returns float64."""
+    x, params = _inputs(11, 2, 40, 8)
+    tx, tp = torch.from_numpy(x), tuple(torch.from_numpy(p) for p in params)
+    _, idx = tpf._forward_plain(tx, tp, None)
+    g = torch.from_numpy(np.random.RandomState(12).randn(*idx.shape).astype(np.float32))
+    dx32, d32 = tpf._winner_backward(tx, tp, idx, g)
+    dx64, d64 = tpf._winner_backward(tx, tp, idx, g, torch.float64)
+    assert dx64.dtype == torch.float32 and all(d.dtype == torch.float64 for d in d64)  # dx keeps x's dtype
+    np.testing.assert_allclose(dx32.numpy(), dx64.numpy(), rtol=1e-4, atol=1e-5)
+    for a, b in zip(d32, d64):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("rows, tile, ctas", [(512 * 256, 64, 128), (256 * 256, 64, 128), (64 * 256, 64, 128),
+                                              (130 * 64, 64, 130), (8, 64, 1), (133 * 64, 64, 67)])
+def test_backward_ctas_keep_the_fewest_tiles_per_cta(rows, tile, ctas):
+    """As many CTAs as the least number of tiles per CTA needs, no more (132
+    SMs): the walker's, ManiSkill's and a 64-row rank's winner rows in 128."""
+    tiles = -(-rows // tile)
+    got, per = tpf.choose_bwd_ctas(rows, tile, 132)
+    assert got == ctas and per == -(-tiles // 132)
+    assert got * per >= tiles and (got - 1) * per < tiles  # every tile taken, every CTA given one
+
+
+# The backward kernel against ``_winner_backward`` on the card.  (name,
+# dtype of x, B, N, C_in, widths, copies of the points): the walker's DrQ
+# encode, ManiSkill's SAC encode, a 64-row data-parallel rank, C_in 8 with
+# widths that are no multiple of 8, three copies of 400 points (every
+# winner in the first copy, many channels on one point), and widths whose
+# buffers take the 32-row tile.
+BWD_SHAPES = [
+    ("walker", "bfloat16", 512, 1536, 9, (64, 128, 256), 1),
+    ("maniskill", "float32", 256, 1200, 9, (128, 128, 256), 1),
+    ("rank64", "float32", 64, 1200, 8, (128, 128, 256), 1),
+    ("c_in8_odd", "float32", 3, 300, 8, (40, 72, 200), 1),
+    ("copies", "float32", 4, 400, 8, (128, 128, 256), 3),
+    ("wide", "float32", 16, 600, 8, (64, 256, 256), 1),
+    ("wide_bf16", "bfloat16", 8, 600, 9, (256, 256, 256), 1),
+]
+GRAD_NAMES = ("dw1", "db1", "dw2", "db2", "dg2", "dbe2", "dw3", "db3", "dg3", "dbe3")
+# Each gradient's worst element against the tensor's largest, the kernel
+# against the plain backward in f32 (sums in another order) and in float64:
+# on the H100 every gradient and f32 dx came within 1e-6 at the walker's,
+# ManiSkill's and the ranks' shapes, so ten times that; a 3xTF32 version of
+# the products, at 4e-4 to 1.4e-3, fails it.
+BWD_TOL = 1e-5
+# A winner row with a relu input (a1, n2, or n3 on its own channel) within
+# this of 0 in float64 may take either branch in f32, wherever the sums
+# round otherwise: on the H100 the kernel took the other branch than both
+# plain versions at one such row of the ManiSkill case (6e-3 in dW2), and
+# both f32 versions the other branch than float64 at one of the walker's
+# (1.2e-3).  Such rows get a zero cotangent, which takes every term of
+# theirs out of every gradient; f32 rounds these inputs by ~1e-7.
+FLIP_MARGIN = 1e-5
+
+
+def _near_relu_edge(tx, tp, idx):
+    """[B, K] rows whose relu inputs come within FLIP_MARGIN of 0 in float64."""
+    w1, b1, w2, b2, g2, be2, w3, b3, g3, be3 = (p.double() for p in tp)
+    B, N, c_in = tx.shape
+    K = idx.shape[1]
+    batch = torch.arange(B, device=tx.device)[:, None]
+    rows = tx.reshape(B * N, c_in)[(batch * N + idx.long()).reshape(-1)].double()
+
+    def ln(a, gamma, beta):
+        mu = a.mean(dim=-1, keepdim=True)
+        return (a - mu) * torch.rsqrt(((a - mu) ** 2).mean(dim=-1, keepdim=True) + tpf._LN_EPS) * gamma + beta
+
+    a1 = rows @ w1 + b1
+    n2 = ln(torch.relu(a1) @ w2 + b2, g2, be2)
+    n3 = ln(torch.relu(n2) @ w3 + b3, g3, be3).reshape(B, K, K).diagonal(dim1=1, dim2=2)
+    near = (a1.abs() < FLIP_MARGIN).any(dim=1) | (n2.abs() < FLIP_MARGIN).any(dim=1)
+    return near.reshape(B, K) | (n3.abs() < FLIP_MARGIN)
+
+
+def _bwd_case(name, dtype, B, N, c_in, widths, copies):
+    tx, tp = _gpu_inputs(9, B, N, c_in, widths)
+    tx = torch.cat([tx] * copies, dim=1)
+    tdt = torch.bfloat16 if dtype == "bfloat16" else None
+    tx = tx.to(tdt or torch.float32)
+    _, idx = tpf._forward_kernel(tx, tp, tdt, with_idx=True)
+    g = torch.randn(idx.shape, generator=torch.Generator("cuda").manual_seed(10), device="cuda")
+    near = _near_relu_edge(tx, tp, idx)
+    assert float(near.float().mean()) < 0.02  # the other 98% and more of the rows are compared
+    return tx, tp, idx, g.masked_fill(near, 0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_dx", [True, False], ids=["dx", "no_dx"])
+@pytest.mark.parametrize("name, dtype, B, N, c_in, widths, copies", BWD_SHAPES, ids=[s[0] for s in BWD_SHAPES])
+def test_backward_kernel_matches_plain_on_gpu(name, dtype, B, N, c_in, widths, copies, with_dx):
+    tx, tp, idx, g = _bwd_case(name, dtype, B, N, c_in, widths, copies)
+    want_dx, want = tpf._winner_backward(tx, tp, idx, g)
+    _, exact = tpf._winner_backward(tx, tp, idx, g, torch.float64)
+    before = tpf.bwd_launch_counts["pointnet_fused_bwd"]
+    got_dx, got = tpf._winner_backward_kernel(tx, tp, idx, g, with_dx)
+    torch.cuda.synchronize()
+    assert tpf.bwd_launch_counts["pointnet_fused_bwd"] == before + 1
+    for gname, a, b, c in zip(GRAD_NAMES, got, want, exact):
+        assert a.shape == b.shape and a.dtype == torch.float32, gname
+        gap = float((a - b).abs().max() / b.abs().max())
+        gap64 = float((a.double() - c).abs().max() / c.abs().max())
+        assert gap <= BWD_TOL and gap64 <= BWD_TOL, (gname, gap, gap64)
+    if not with_dx:
+        assert got_dx is None
+    else:
+        assert got_dx.dtype == tx.dtype and got_dx.shape == tx.shape
+        # bf16: both round the summed rows to bf16 (the plain one each add)
+        tol = BWD_TOL if dtype == "float32" else 2e-2
+        gap = float((got_dx.float() - want_dx.float()).abs().max() / want_dx.float().abs().max())
+        assert gap <= tol, gap
+        hit = torch.zeros(tx.shape[:2], dtype=torch.bool, device=tx.device)
+        hit[torch.arange(B, device=tx.device)[:, None], idx.long()] = True
+        assert not got_dx[~hit].any()  # no gradient where no winner is
+    # Repeated calls are bitwise equal (no atomics, a fixed order of the sums).
+    again_dx, again = tpf._winner_backward_kernel(tx, tp, idx, g, with_dx)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    assert not with_dx or torch.equal(again_dx, got_dx)
+
+
+@pytest.mark.gpu
+def test_backward_kernel_replays_bitwise_in_a_cuda_graph_on_gpu():
+    """The kernel captured in a CUDA graph: each replay gives the eager
+    call's gradients, bitwise."""
+    tx, tp, idx, g = _bwd_case(*BWD_SHAPES[0])
+    _, eager = tpf._winner_backward_kernel(tx, tp, idx, g, False)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        _, captured = tpf._winner_backward_kernel(tx, tp, idx, g, False)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, eager))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_in, widths, tile", [(9, (64, 128, 256), 64), (9, (128, 128, 256), 64),
+                                                (8, (40, 72, 200), 64), (8, (64, 256, 256), 32),
+                                                (9, (256, 256, 256), 32)])
+def test_backward_tile_rows_follow_the_widths_on_gpu(c_in, widths, tile):
+    """64 winner rows a tile where its buffers fit in shared memory, else
+    32 (the ``wide`` cases above run that tile)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel is built with nvcc")
+    assert tpf.load_library().pointnet_fused_bwd_tile_rows(c_in, *widths) == tile

@@ -51,6 +51,7 @@ def test_train_evaluate_and_auto_resume(tmp_path):
     assert "train/sac/critic_loss" in header
     # CPU tensors never reach the CUDA kernel.
     assert out["launches"] == {"pointnet_fused_fwd_idx": 0, "pointnet_fused_fwd_max": 0}
+    assert out["bwd_launches"] == {"pointnet_fused_bwd": 0}
 
     ev = _run(wd, "--evaluation", "--resume-from", str(models / "model_final"))
     assert set(ev["eval"]) == {"rewards_mean", "lengths_mean", "success_rate"}

@@ -431,9 +431,9 @@ SLICES = {  # config, overrides at test size
 }
 
 
-def _card_agents(kind, bf16=False):
+def _card_agents(kind, bf16=False, extra=None):
     """Two agents of a tiny slice on the card, the second with the first's
-    state, and a filled ``DeviceReplayMemory``."""
+    state, and a filled ``DeviceReplayMemory``; ``extra``: more overrides."""
     from pointcloud_rl_torch.algorithms import build_agent
     from pointcloud_rl_torch.config import Config
     from pointcloud_rl_torch.env import get_env_info
@@ -442,7 +442,7 @@ def _card_agents(kind, bf16=False):
 
     config, overrides = SLICES[kind]
     cfg = Config.fromfile(osp.join(_REPO, config))
-    cfg.merge_from_dict(dict(TINY, **overrides, **{"agent_cfg.bf16": bf16}))
+    cfg.merge_from_dict(dict(TINY, **overrides, **(extra or {}), **{"agent_cfg.bf16": bf16}))
     env_info = get_env_info(dict(cfg["env_cfg"]))
     kwargs = get_kwargs_from_shape(env_info["obs_shape"], env_info["action_shape"])
     agent_cfg = dict(replace_placeholder_with_args(dict(cfg["agent_cfg"]), **kwargs), env_params=env_info,
@@ -583,6 +583,31 @@ def test_graphed_act_fused_chunks_equal_eager_on_gpu():
         _assert_same_state(graphed, eager, f"fused forward {step}")
     vec, done = graphed.finish_fused_updates()
     assert done == 8 and bool(torch.isfinite(vec).all())
+
+
+@pytest.mark.gpu
+def test_a_walker_shaped_update_replays_its_backward_launches_on_gpu():
+    """DrQ scans at the walker's body widths ([64, 128, 256], bf16): the
+    captured program holds the winner-backward kernel's launches, each
+    replay adds them to ``bwd_launch_counts`` as the eager run did, and the
+    graphed agent stays bitwise equal to its eager twin."""
+    from pointcloud_rl_torch.ops import pointnet_fused as pf
+
+    _card()
+    graphed, eager, mem, _ = _card_agents("drq", True, extra={_V + "mlp_spec": [64, 128, 256]})
+    added = []
+    for rnd in range(3):  # the eager run, the capture and a replay, a replay
+        before = pf.bwd_launch_counts["pointnet_fused_bwd"]
+        gen = mem.generator.get_state()
+        got = graphed.update_parameters_scan(mem, 4)
+        added.append(pf.bwd_launch_counts["pointnet_fused_bwd"] - before)
+        mem.generator.set_state(gen)
+        want = eager._update_vecs(mem, 4)
+        assert torch.equal(got, want), (rnd, got, want)
+        _assert_same_state(graphed, eager, f"round {rnd}")
+    (prog,) = graphed._programs.stats()["programs"].values()
+    assert added[0] >= 4 and added == [added[0]] * 3
+    assert prog["launches"]["pointnet_fused_bwd"] == added[0] and prog["replays"] == 2
 
 
 @pytest.mark.gpu
