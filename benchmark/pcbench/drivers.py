@@ -7,7 +7,12 @@ Two kinds of traffic, each a file of parameters under ``traffic/``:
   capacity at set-up with seeded transitions (``fill_rows``).  A round's end
   is a CUDA event recorded after it and read after the window; the host
   keeps at most ``in_flight`` rounds queued past the one the card runs (it
-  polls the events, it never synchronizes inside the window).
+  polls the events, it never synchronizes inside the window).  On several
+  ranks (a cell of several cards, ``ranks.py``) each rank fills a replica of
+  the replay alike and runs the same rounds as a data-parallel rank of the
+  port (``parallel.setup_data_parallel``: every rank samples the global
+  batch, keeps its rows and all-reduces its gradients); rank 0's events
+  time the rounds.
 - ``loop``: the configuration's ``train_rl`` loop as ``run_rl`` builds it
   (rollout, agent, replay), after its warm-up: collection by the stand-in
   envs, the act, the replay push and the updates.  A cycle is one turn of
@@ -34,7 +39,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
-from . import checks, flops, fusion, reference, standins, tracing, weights
+from . import checks, flops, fusion, ranks, reference, standins, tracing, weights
 
 CHECK_UPDATES = 3  # the check's rounds take at least this many updates
 CAPTURE_FROM = 4  # a loop cell keeps the fusion calls of window cycle 0 and of one drawn from 1..CAPTURE_FROM-1
@@ -112,7 +117,7 @@ def build_agent(config: dict, device, seeds: dict):
     agent = port_build_agent(dict(decode(config["agent_cfg"]), env_params=env_info(config), seed=seeds["agent"],
                                   device=str(device)))
     shapes = weights.shapes_of(agent.model.named_parameters())
-    weights.load_into(agent, weights.make(shapes, seeds["weights"], device))
+    weights.load_into(agent, weights.make(shapes, seeds["weights"], device, config["reference"]["encoder"]))
     return agent, shapes
 
 
@@ -266,9 +271,11 @@ def program_check(agent, call: Callable[[], Any], rounds: int, n: int) -> dict:
 def plant_fault(agent, fault: Optional[str], device) -> None:
     """Break the timed path underneath (the benchmark's own tests only):
     ``unchanged`` makes every step leave the train state as it was;
-    ``half_batch`` takes every update over the first half of its rows
-    (``fuse_altered``, a loop cell's, moves a fused point; ``action_altered``
-    alters a pushed action)."""
+    ``half_batch`` takes every update over the first half of its rows (on
+    several ranks, the first half of the global batch split over them);
+    ``exchange_left_out`` steps each rank on its own rows' gradient, with
+    no all-reduce (``fuse_altered``, a loop cell's, moves a fused point;
+    ``action_altered`` alters a pushed action)."""
     if fault == "unchanged":  # no optimizer step, and a target rate of 0 (this agent's alone)
         for tx in (agent.critic_tx, agent.actor_tx, agent.alpha_tx):
             if tx.opt is not None:
@@ -281,9 +288,17 @@ def plant_fault(agent, fault: Optional[str], device) -> None:
 
         class Half(type(dp)):
             def shard(self, batch):
-                return tree_map(lambda x: x[: x.shape[0] // 2], batch)
+                return super().shard(tree_map(lambda x: x[: x.shape[0] // 2], batch))
 
         dp.__class__ = Half
+    elif fault == "exchange_left_out":
+        dp = agent.data_parallel
+
+        class Alone(type(dp)):
+            def allreduce_grads(self, grads):
+                return grads
+
+        dp.__class__ = Alone
 
 
 def free(device) -> None:
@@ -305,12 +320,26 @@ def memory_peak(device) -> int:
     return int(torch.cuda.max_memory_allocated(device))
 
 
-def device_record(cell, device) -> dict:
+def world_size() -> int:
+    """The ranks of this run: those of its process group, else one."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def device_record(device) -> dict:
+    """This rank's card (the harness puts the ranks' records together)."""
     if device.type != "cuda":
-        return {"platform": "cpu", "kind": "cpu", "count": cell.chips, "memory_peak_bytes": 0}
+        return {"platform": "cpu", "kind": "cpu", "count": world_size(), "memory_peak_bytes": 0}
     import torch
 
-    return {"platform": "gpu", "kind": torch.cuda.get_device_name(device), "count": cell.chips,
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(device), "count": world_size(),
             "memory_peak_bytes": memory_peak(device)}
 
 
@@ -408,13 +437,21 @@ class _Driver:
             self.prof = None
 
     def read_context(self, window: dict) -> dict:
+        """What the per-layer readers read, on this rank.  ``kernel_rows``:
+        the rows a kernel of the update runs at on this rank (its share of
+        the global batch); ``flops``: one global update's; ``chips``: the
+        ranks over which the window's updates ran; ``traced_updates``: the
+        updates of the traced sub-window."""
         self.read_trace()
         shapes = self.config["shapes"]
-        rows = {int(shapes["batch_size"]) * int(shapes.get("num_aug", 1)), int(shapes["batch_size"])}
+        world = world_size()
+        batch = int(shapes["batch_size"]) // world
+        rows = {batch * int(shapes.get("num_aug", 1)), batch}
         rows |= set(self.act_rows())
         return {"trace": self.trace, "config": self.config, "cell": self.cell.name, "window": window,
                 "spans": self.window_spans, "launches": getattr(self, "launches", {}),
-                "kernel_rows": sorted(rows), "flops": flops.update_flops(shapes)}
+                "kernel_rows": sorted(rows), "chips": world, "traced_updates": getattr(self, "traced_updates", 0),
+                "flops": flops.update_flops(shapes, self.config["reference"]["encoder"])}
 
     def act_rows(self) -> List[int]:
         return []
@@ -444,7 +481,7 @@ class _Driver:
         import torch
 
         spec = reference.Spec(self.config["reference"])
-        w = weights.make(shapes, self.seeds["weights"], self.device)
+        w = weights.make(shapes, self.seeds["weights"], self.device, self.config["reference"]["encoder"])
 
         observed = observed_steps(per_round)
 
@@ -494,6 +531,10 @@ class UpdatesDriver(_Driver):
             rows = fill_rows(cfg, self.seeds["fill"], c, min(FILL_CHUNK, capacity - c * FILL_CHUNK), dev)
             replay.push_batch(rows if on_device else to_host(rows))
         sync(dev)
+        if world_size() > 1:
+            from pointcloud_rl_torch.parallel import setup_data_parallel
+
+            setup_data_parallel(agent, world_size(), replay=replay)
         plant_fault(agent, self.tweak.get("fault"), dev)
 
         # the first rounds, through the window's call on the window's replay
@@ -524,6 +565,7 @@ class UpdatesDriver(_Driver):
         trace_rounds = int(self.traffic["trace_rounds"]) if self.args.trace else 0
         clock = Clock(dev)
         vecs: List = []
+        end = ranks.WindowEnd(in_flight)
         setup_s = time.time() - self.t_proc
         t0 = time.perf_counter()
         clock.mark()
@@ -540,17 +582,21 @@ class UpdatesDriver(_Driver):
                 mark = clock.marks[-1 - in_flight]
                 while not mark.query():
                     time.sleep(2e-4)
-            if time.perf_counter() - t0 >= self.args.seconds and (not trace_rounds or self.traced):
+            time_up = time.perf_counter() - t0 >= self.args.seconds and (not trace_rounds or self.traced)
+            if end.reached(rounds, time_up):
                 break
         sync(dev)
         seconds = time.perf_counter() - t0
+        self.traced_updates = trace_rounds * n
         window = {"updates": rounds * n, "seconds": seconds, "cycle_ms": clock.cycle_ms(), "setup_s": setup_s,
                   "cycles": rounds}
         self.window_spans = {k: v / rounds for k, v in self.spans.totals.items()}
         failed = nonfinite_count(vecs)
-        dev_rec = device_record(self.cell, dev)
+        dev_rec = device_record(dev)
 
-        # the reference, once the program's state is freed
+        # the reference, once the program's state is freed (an NCCL rank's
+        # graphs first: they hold its communicator)
+        agent.drop_programs()
         del agent, vecs, clock
         if on_device:
             del replay
@@ -754,7 +800,7 @@ class LoopDriver(_Driver):
         self.window_spans = {k: v / max(cycles, 1) for k, v in self.spans.totals.items()}
         self.window_spans["collect_ms"] = float(np.mean(st["collect_ms"])) if st["collect_ms"] else math.nan
         failed = nonfinite_count(st["vecs"])
-        dev_rec = device_record(self.cell, dev)
+        dev_rec = device_record(dev)
 
         # the act and the push: every pushed action row is one the act dispatched
         lag = int(cfg["rollout_cfg"].get("action_lag", 0))
@@ -784,7 +830,7 @@ class LoopDriver(_Driver):
             """The explore act on the first dispatch's observations, from ``state``."""
             obs = reference_obs({k: torch.as_tensor(v).to(dev) for k, v in first_obs.items()}, cfg, stored=False)
             with reference.precise():
-                feat = reference.pointnet(state["P"], obs["pcd"], precision)
+                feat = spec.encoder.encode(state["P"], obs["pcd"], precision)
                 x = torch.cat([feat, obs["state"]], -1) if "state" in obs else feat
                 out = reference.mlp(state["P"], "actor.final_mlp.", x, spec.actor_layers, precision)
                 mean, log_std = out.chunk(2, -1)

@@ -5,13 +5,17 @@ takes for one call of the fused PointNet body, the larger of its products
 over the peak rate of their type (f32 runs as 3xTF32, three tensor-core
 products per FLOP) and its bytes (inputs read once, outputs written once)
 over HBM's rate.  ``update_flops`` counts the matrix products of one
-SAC / DrQ update of the PointNet actor-critic from the configuration's
-shapes; LayerNorms, elementwise ops and the optimizer are not counted.
+SAC / DrQ update of the actor-critic from the configuration's shapes, its
+encoder's through the encoder's module (``encoders/<name>.py``);
+LayerNorms, elementwise ops and the optimizer are not counted.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Tuple
+
+from . import encoders
+from .encoders.pointnet import body_flop
 
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet).
 PEAK_TF32 = 495e12  # FLOP/s
@@ -23,11 +27,6 @@ def peak_flops(dtype: str) -> float:
     """The rate ``bound_ms`` holds a product of ``dtype`` to: bf16 at its
     tensor-core peak, f32 as three TF32 products per FLOP."""
     return PEAK_BF16 if dtype == "bfloat16" else PEAK_TF32 / 3
-
-
-def body_flop(B: int, N: int, c_in: int, widths) -> int:
-    c1, c2, c3 = widths
-    return 2 * B * N * (c_in * c1 + c1 * c2 + c2 * c3)
 
 
 def bound_ms(B: int, N: int, c_in: int, widths, dtype: str, with_idx: bool) -> Tuple[float, str]:
@@ -47,48 +46,42 @@ def _dense_chain(rows: int, dims) -> int:
     return sum(2 * rows * a * b for a, b in zip(dims[:-1], dims[1:]))
 
 
-def update_flops(shapes: Dict) -> Dict[str, float]:
+def update_flops(shapes: Dict, encoder: str) -> Dict[str, float]:
     """FLOPs of one update, by part, and their mean per update (``total``).
 
-    ``shapes``: ``batch_size``, ``num_aug`` (1 for SAC), ``points``,
-    ``channels``, ``widths`` (the body's three), ``feature`` (the final
-    dense layer's width), ``state`` (robot state appended to it, 0 if
+    ``shapes``: ``batch_size``, ``num_aug`` (1 for SAC), ``feature`` (the
+    encoder's output width), ``state`` (robot state appended to it, 0 if
     none), ``action``, ``hidden`` (the heads' hidden widths), ``heads`` (Q
-    heads) and ``actor_interval``.  The configuration's algorithm: the
-    encoder is shared and trained by the critic; the actor reuses the
-    critic forward's feature (no encode of its own).
+    heads), ``actor_interval``, and what the encoder ``encoder`` reads of
+    them.  The configuration's algorithm: the encoder is shared and trained
+    by the critic; the actor reuses the critic forward's feature (no encode
+    of its own).
 
     - target (R = batch x num_aug rows, no gradient): the encode of the
       next obs, the actor's head and the target critic's heads;
     - critic step (R rows): the encode and the critic's heads forward;
-      their backward, which for the body runs over one winner point per
-      batch row and output channel (the max-pool sends each channel's
-      gradient to one point) and takes no gradient of the input cloud;
+      their backward, the encoder's with no gradient of its input
+      (``backward_flops``);
     - actor step (batch rows, on every ``actor_interval``-th update): the
       actor's head forward and backward (no input gradient at its first
       layer, whose input is a detached feature), the critic's heads
       forward and their input gradients (the critic is not stepped)."""
+    enc = encoders.load(encoder)
     B, K = int(shapes["batch_size"]), int(shapes.get("num_aug", 1))
     R = B * K
-    N, C = int(shapes["points"]), int(shapes["channels"])
-    c1, c2, c3 = (int(w) for w in shapes["widths"])
     F, S, A = int(shapes["feature"]), int(shapes.get("state", 0)), int(shapes["action"])
     hid = [int(h) for h in shapes["hidden"]]
     heads, interval = int(shapes["heads"]), int(shapes["actor_interval"])
-
-    def encode(rows):
-        return body_flop(rows, N, C, (c1, c2, c3)) + 2 * rows * c3 * F
 
     actor_dims = [F + S] + hid + [2 * A]
     critic_dims = [F + S + A] + hid + [1]
     actor_fwd = lambda rows: _dense_chain(rows, actor_dims)  # noqa: E731
     critic_fwd = lambda rows: heads * _dense_chain(rows, critic_dims)  # noqa: E731
 
-    body_bwd = R * c3 * (2 * 2 * c2 * c3 + 2 * 2 * c1 * c2 + 2 * C * c1)  # winner rows; no input gradient
-    final_bwd = 2 * 2 * R * c3 * F
+    encode = enc.forward_flops(shapes, R)
     parts = {
-        "target": encode(R) + actor_fwd(R) + critic_fwd(R),
-        "critic_step": encode(R) + critic_fwd(R) + 2 * critic_fwd(R) + body_bwd + final_bwd,
+        "target": encode + actor_fwd(R) + critic_fwd(R),
+        "critic_step": encode + critic_fwd(R) + 2 * critic_fwd(R) + enc.backward_flops(shapes, R),
         "actor_step": (actor_fwd(B) + (2 * actor_fwd(B) - 2 * B * actor_dims[0] * actor_dims[1])
                        + critic_fwd(B) + critic_fwd(B)),
     }

@@ -7,7 +7,10 @@ the configuration's ``configs/<config>.json``, the traffic's
 checks what the timed path produced against the plain reference, and
 prints one JSON line last on standard output.  ``--trace 0`` reports the
 cell's end-to-end metrics, ``--trace 1`` its per-layer metrics, each read
-by the file ``metrics/<metric>.py`` that bears its name.
+by the file ``metrics/<metric>.py`` that bears its name (or the leading
+dotted part of it).  A cell of several chips runs one data-parallel rank
+of the port per chip, each in a process of its own (``ranks.py``); this
+process waits for them, puts their parts together and prints the line.
 """
 
 from __future__ import annotations
@@ -72,12 +75,32 @@ class Cell:
         self.limits: Dict[str, float] = dict(self.file["limits"])
 
 
-def load_metric_reader(name: str):
-    path = osp.join(BENCH_DIR, "metrics", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(f"pcbench_metric_{name.replace('.', '_')}", path)
+def metric_file(name: str) -> str:
+    """The reader of metric ``name``: ``metrics/<name>.py``, else that of the
+    longest leading dotted part of the name that has one, so that
+    ``device.idle_pct.<config>`` is read as ``device.idle_pct`` is."""
+    parts = name.split(".")
+    for end in range(len(parts), 0, -1):
+        path = osp.join(BENCH_DIR, "metrics", ".".join(parts[:end]) + ".py")
+        if osp.exists(path):
+            return path
+    raise FileNotFoundError(f"no reader for the metric {name!r} under {osp.join(BENCH_DIR, 'metrics')}")
+
+
+def load_metric(name: str):
+    """The reader module of metric ``name``: ``read(ctx)``, and optionally
+    ``combine(values)``, which makes one reading of the ranks' (rank 0's
+    where the module has none)."""
+    path = metric_file(name)
+    mod_name = "pcbench_metric_" + osp.basename(path)[:-3].replace(".", "_")
+    spec = importlib.util.spec_from_file_location(mod_name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_metric_reader(name: str):
+    return load_metric(name).read
 
 
 def parse_args(argv=None):
@@ -100,15 +123,83 @@ def _num(x: float) -> float:
 THREAD_VARS = ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS")
 
 
+def run_part(workload: str, args, device: str, t_proc: float, tweak: dict) -> dict:
+    """One rank's run of the cell: the driver, then the per-layer readers on
+    this rank's trace (``--trace 1``).  What it returns is plain data: the
+    harness puts the ranks' parts together (``combine``)."""
+    from . import drivers
+
+    cell = Cell(workload)
+    out = drivers.run(cell, args, device, t_proc, tweak)
+    part = {k: out[k] for k in ("compared", "end_to_end", "attempted", "failed", "device", "notes")}
+    part["breakdown"] = out.get("breakdown")
+    part["per_layer"] = {m["name"]: load_metric_reader(m["name"])(out["read"]) for m in cell.per_layer} \
+        if args.trace else {}
+    part["blocked"] = blocked_modules()
+    return part
+
+
+def _worst(parts: List[dict], key: str) -> tuple:
+    """(the largest value of the compared number ``key`` over the ranks, where it lies)."""
+    r = max(range(len(parts)), key=lambda i: _num(parts[i]["compared"][key]["value"]))
+    at = parts[r]["compared"][key].get("at")
+    if len(parts) > 1:
+        at = f"{at}, rank {r}" if at else f"rank {r}"
+    return _num(parts[r]["compared"][key]["value"]), at
+
+
+def combine(cell: "Cell", args, parts: List[dict]) -> Dict[str, Any]:
+    """The result line of a run from its ranks' parts (one part on one card):
+    each compared number at its worst rank, the end-to-end metrics and the
+    breakdown of rank 0, each per-layer metric as its reader combines the
+    ranks', the memory peak of the fullest card and the busy seconds
+    averaged over the cards."""
+    lead = parts[0]
+    limits = cell.limits
+    compared, notes = {}, list(lead["notes"])
+    for k in lead["compared"]:
+        value, at = _worst(parts, k)
+        if k in limits:
+            compared[k] = {"value": value, "limit": limits[k], "at": at}
+        else:
+            notes.append(f"{k} {value!r} (not compared: no limit)")
+    failed = sum(int(p["failed"]) for p in parts)
+    correct = all(v["value"] <= v["limit"] for v in compared.values()) and failed == 0
+    if args.trace:
+        metrics = {}
+        for m in cell.per_layer:
+            values = [p["per_layer"][m["name"]] for p in parts]
+            value = getattr(load_metric(m["name"]), "combine", lambda vs: vs[0])(values)
+            if value is not None:
+                metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
+    else:
+        metrics = {m["name"]: {"value": float(lead["end_to_end"][m["name"]]), "unit": m["unit"]}
+                   for m in cell.end_to_end}
+    device = dict(lead["device"], count=len(parts), memory_peak_bytes=max(p["device"]["memory_peak_bytes"]
+                                                                          for p in parts))
+    busy = [p["device"]["busy_s"] for p in parts if "busy_s" in p["device"]]
+    if busy:
+        device["busy_s"] = sum(busy) / len(busy)
+    result: Dict[str, Any] = {"correct": bool(correct), "attempted": int(lead["attempted"]), "failed": failed,
+                              "metrics": metrics, "device": device}
+    if args.trace and lead.get("breakdown"):
+        result["breakdown"] = lead["breakdown"]
+    return {"result": result, "compared": compared, "notes": notes}
+
+
 def main(argv=None, device: Optional[str] = None, tweak: Optional[dict] = None) -> int:
     """Run a cell once; returns the exit code.  ``device`` and ``tweak`` are
     for the benchmark's own tests: a CPU run (which skips the look for a
-    chip) at the sizes ``tweak`` patches in, with a fault planted."""
+    chip) at the sizes ``tweak`` patches in, with a fault planted, on
+    ``tweak["ranks"]`` ranks where given.  A cell of several chips runs one
+    rank per chip, each in a process of its own (``ranks.py``)."""
     t_proc = process_start_time()
     for var in THREAD_VARS:
         os.environ[var] = "1"
     args = parse_args(argv)
     cell = Cell(args.workload)
+    tweak = tweak or {}
+    world = int(tweak.get("ranks", cell.chips))
     if device is None:
         import torch
 
@@ -118,41 +209,29 @@ def main(argv=None, device: Optional[str] = None, tweak: Optional[dict] = None) 
                   f"{torch.cuda.is_available()} and {have} are visible", file=sys.stderr)
             return 2
         device = "cuda"
-    from . import drivers
+    if world > 1:
+        from . import ranks
 
-    out = drivers.run(cell, args, device, t_proc, tweak or {})
-    found = blocked_modules()
+        try:
+            parts = ranks.launch(world, run_part, (cell.name, args, device, t_proc, tweak), device)
+        except ranks.RankFailed as err:
+            print(f"benchmark: {err}", file=sys.stderr)
+            return 3
+    else:
+        parts = [run_part(cell.name, args, device, t_proc, tweak)]
+    found = sorted(set(blocked_modules()).union(*(p["blocked"] for p in parts)))
     if found:
         print(f"benchmark: the run loaded {found}; the benchmark measures pointcloud_rl_torch alone", file=sys.stderr)
         return 3
 
-    # the numbers the cell's file gives a limit decide ``correct``; the others are printed beside them
-    compared = {k: {"value": _num(v["value"]), "limit": cell.limits[k]} for k, v in out["compared"].items()
-                if k in cell.limits}
-    for k, v in out["compared"].items():
-        if k not in cell.limits:
-            out.setdefault("notes", []).append(f"{k} {v['value']!r} (not compared: no limit)")
-    correct = all(v["value"] <= v["limit"] for v in compared.values()) and out["failed"] == 0
-    if args.trace:
-        metrics = {}
-        for m in cell.per_layer:
-            value = load_metric_reader(m["name"])(out["read"])
-            if value is not None:
-                metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
-    else:
-        metrics = {m["name"]: {"value": float(out["end_to_end"][m["name"]]), "unit": m["unit"]}
-                   for m in cell.end_to_end}
-    result: Dict[str, Any] = {"correct": bool(correct), "attempted": int(out["attempted"]),
-                              "failed": int(out["failed"]), "metrics": metrics, "device": out["device"]}
-    if args.trace and out.get("breakdown"):
-        result["breakdown"] = out["breakdown"]
-    for line in out.get("notes", []):
+    run = combine(cell, args, parts)
+    result, compared = run["result"], run["compared"]
+    for line in run["notes"]:
         print(f"[benchmark] {line}", file=sys.stderr)
     for k, v in compared.items():
-        where = out["compared"][k].get("at")
-        print(f"[check] {k} {v['value']!r} limit {v['limit']!r}" + (f" (worst at {where})" if where else ""),
+        print(f"[check] {k} {v['value']!r} limit {v['limit']!r}" + (f" (worst at {v['at']})" if v["at"] else ""),
               file=sys.stderr)
-    result["compared"] = compared
+    result["compared"] = {k: {"value": v["value"], "limit": v["limit"]} for k, v in compared.items()}
     sys.stderr.flush()
     print(json.dumps(result), flush=True)
     return 0

@@ -1,12 +1,14 @@
-"""Plain PyTorch reference of the SAC / DrQ update of the PointNet actor-critic.
+"""Plain PyTorch reference of the SAC / DrQ update of a visual actor-critic.
 
 The benchmark holds the port's timed updates against this module.  It
 imports nothing of the port: it is written from the algorithm's equations
-(SAC with twin Q heads, a shared PointNet backbone trained by the critic,
+(SAC with twin Q heads, a shared visual backbone trained by the critic,
 interval-gated actor, alpha and target steps; DrQ's K augmented copies)
 and works on a plain dict of named tensors.  Parameter names follow the
-configuration's layout (``visual.conv.Dense_0.weight``...), so a reading
-can be set beside the program's leaf by leaf.
+configuration's layout (``visual.*``, ``actor.final_mlp.*``,
+``critic.VmapMLP_0.*``), so a reading can be set beside the program's leaf
+by leaf.  The backbone is the encoder the configuration names
+(``reference.encoder``: the module ``encoders/<name>.py``).
 
 Every matrix product goes through ``matmul`` in one of four precisions:
 
@@ -34,11 +36,11 @@ from contextlib import contextmanager
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
-import torch.nn.functional as F
+
+from . import encoders
 
 PRECISIONS = ("float32", "bfloat16", "tf32", "float8")
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
-_PN_EPS = 1e-6  # the PointNet body's and final LayerNorm's epsilon
 _F8_MAX = 448.0  # the largest float8 e4m3 value
 
 
@@ -102,23 +104,6 @@ def linear(x, w, b, precision):
     return matmul(x, w.t(), precision) + b
 
 
-def pointnet(P: Dict[str, torch.Tensor], pcd: torch.Tensor, precision: str) -> torch.Tensor:
-    """PointNet over ``pcd [R, N, C]`` (channels xyz, rgb/255, then
-    pos_encoding or seg): three shared layers (ReLU; LayerNorm on the 2nd
-    and 3rd), the max over points, a dense layer and a LayerNorm."""
-    R, N, C = pcd.shape
-    x = pcd.reshape(R * N, C).float()
-    p = "visual.conv."
-    h = torch.relu(linear(x, P[p + "Dense_0.weight"], P[p + "Dense_0.bias"], precision))
-    h = linear(h, P[p + "Dense_1.weight"], P[p + "Dense_1.bias"], precision)
-    h = torch.relu(F.layer_norm(h, h.shape[-1:], P[p + "LayerNorm_0.weight"], P[p + "LayerNorm_0.bias"], _PN_EPS))
-    h = linear(h, P[p + "Dense_2.weight"], P[p + "Dense_2.bias"], precision)
-    h = torch.relu(F.layer_norm(h, h.shape[-1:], P[p + "LayerNorm_1.weight"], P[p + "LayerNorm_1.bias"], _PN_EPS))
-    pooled = h.reshape(R, N, -1).max(dim=1).values
-    f = linear(pooled, P["visual.final_dense.weight"], P["visual.final_dense.bias"], precision)
-    return F.layer_norm(f, f.shape[-1:], P["visual.final_ln.weight"], P["visual.final_ln.bias"], _PN_EPS)
-
-
 def mlp(P, prefix: str, x, n_layers: int, precision: str, head: Optional[int] = None):
     """ReLU MLP without norms, the last layer linear; ``head`` picks one of
     a stacked ensemble's ``[heads, in, out]`` kernels."""
@@ -170,6 +155,7 @@ class Spec:
         self.lr = {k: float(v) for k, v in d["lr"].items()}
         self.betas = {k: tuple(float(b) for b in v) for k, v in d["betas"].items()}
         self.translation = d.get("translation")  # DrQ's shift per axis, or None
+        self.encoder = encoders.load(d["encoder"])  # the backbone's module: encode, FLOPs, seeding
 
 
 def init_state(weights: Dict[str, torch.Tensor], spec: Spec) -> dict:
@@ -199,12 +185,6 @@ def adam_step(state: dict, group: str, grads: Dict[str, torch.Tensor], spec: Spe
             v = opt["v"][k].mul_(b2).addcmul_(g, g, value=1 - b2)
             denom = (v / (1 - b2 ** t)).sqrt() + 1e-8
             state["P"][k] -= lr * (m / (1 - b1 ** t)) / denom
-
-
-def _features(P, obs: dict, spec: Spec, precision: str) -> torch.Tensor:
-    """The visual feature, with the robot state appended when there is one."""
-    feat = pointnet(P, obs["pcd"], precision)
-    return torch.cat([feat, obs["state"].float()], dim=-1) if "state" in obs else feat
 
 
 def _with_state(feat, obs):
@@ -264,7 +244,7 @@ def update(state: dict, batch: dict, gen: torch.Generator, spec: Spec, precision
 
     # the bootstrap target, from the pre-step parameters
     with torch.no_grad():
-        feat_next = pointnet(P, next_obs["pcd"], precision)
+        feat_next = spec.encoder.encode(P, next_obs["pcd"], precision)
         out = mlp(P, "actor.final_mlp.", _with_state(feat_next, next_obs), spec.actor_layers, precision)
         a_next, neg_logp = tanh_gaussian(out, _normal(gen, B * K, spec, out.device), spec.log_std_bound)
         q_next = critic(T, "critic.VmapMLP_0.", torch.cat([_with_state(feat_next, next_obs), a_next], -1), L, H,
@@ -278,7 +258,7 @@ def update(state: dict, batch: dict, gen: torch.Generator, spec: Spec, precision
     keys = state["groups"]["critic"]
     leaves = {k: P[k].detach().requires_grad_(True) for k in keys}
     Pc = dict(P, **leaves)
-    feat = pointnet(Pc, obs["pcd"], precision)
+    feat = spec.encoder.encode(Pc, obs["pcd"], precision)
     q = critic(Pc, "critic.VmapMLP_0.", torch.cat([_with_state(feat, obs), actions], -1), L, H, precision)
     critic_loss = ((q - q_target) ** 2).mean() * H
     grads = dict(zip(keys, torch.autograd.grad(critic_loss, [leaves[k] for k in keys])))

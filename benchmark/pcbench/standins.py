@@ -4,7 +4,13 @@ A copy of ``chip_smoke.py``'s ``WalkerRawStandIn`` (with its wrapper chain
 ``build_walker_standin``), unchanged in what it renders, so the benchmark
 generates its own traffic: it ships what dm_control's walker ships in
 ``obs_mode="raw"`` (depth, rgb and the camera row), ray-cast with numpy
-from a procedural scene that the actions move.  Its draws come from its
+from a procedural scene that the actions move.  It renders the same
+frames as ``chip_smoke.py``'s, with what does not change from frame to
+frame worked out once and the spheres cast only inside the rectangle of
+pixels that their silhouettes can cover: the env workers are threads
+that share one interpreter lock, and a render of many small numpy calls
+on every pixel held them long enough that the loop cell's pace followed
+the host's load rather than the port's.  Its draws come from its
 own ``RandomState``, seeded by the rollout's base seed plus the worker
 index.  Of ``chip_smoke.py``'s ``ManiSkillRawStandIn`` only the shape of its
 cloud is kept, for the ManiSkill fill: no cell runs ManiSkill envs.
@@ -30,6 +36,7 @@ class WalkerRawStandIn:
     SKY = (120, 170, 230)
     GROUND = ((90, 110, 90), (60, 80, 60))
     Z_TO_WORLD = True  # the camera row carries the camera's height, added to each point's
+    CAM_Y, CAM_Z = -2.2, 1.2  # the camera's place behind and above the torso, which it tracks in x
 
     def __init__(self, obs_mode="raw", image_size=(84, 84), n_points=512, num_ground=128, ground_eps=8e-3,
                  max_depth=5.0, fovy=45.0, frame_skip=2, **kwargs):
@@ -53,6 +60,20 @@ class WalkerRawStandIn:
         v, u = np.indices((h, w))
         uv1 = np.stack([u + 0.5, v + 0.5, np.ones((h, w))], -1).reshape(-1, 3)
         self._dirs = uv1 @ self.inv_intrinsic.T @ self.cam_rot.T  # world direction per unit depth
+        self._focal, self._centre = focal, c
+        self._a = (self._dirs * self._dirs).sum(-1)
+        # the camera's height is fixed, so the ground's depth and what each pixel hits without the body are too
+        d = self._dirs
+        down = d[:, 2] < 0
+        t = np.where(down, -self.CAM_Z / np.where(down, d[:, 2], -1.0), np.inf)
+        self._depth0 = np.where(down, t, 10.0)
+        self._hit0 = np.where(down, 0, -1)
+        # a ground pixel's world x less the camera's and its checker row, from the f32 depth that get_obs sees
+        d32 = self._depth0.astype(np.float32).astype(np.float64)
+        self._ground_dx = d[:, 0] * d32
+        self._ground_row = np.floor((self.CAM_Y + d[:, 1] * d32) * 4)
+        self._pixels = np.arange(h * w).reshape(h, w)
+        self._palette = np.concatenate([[self.SKY], self.GROUND, self.body_colors()]).astype(np.uint8).T.copy()
         self.rs = np.random.RandomState(0)
 
     @classmethod
@@ -79,44 +100,63 @@ class WalkerRawStandIn:
         reward = 10.0 * (self.x - x0) - 1e-3 * float(a @ a)
         return self.get_obs(), reward, False, {}
 
+    def _window(self, rel: np.ndarray) -> np.ndarray:
+        """The pixels whose rays can meet a sphere: the rectangle that bounds
+        the spheres' silhouettes (their tangent planes through the camera),
+        widened by two pixels; every pixel where a sphere is not wholly in
+        front of the camera.  ``rel`` is ``[8, 3]``, the centres less the
+        camera's place."""
+        w, h = int(self.image_size[0]), int(self.image_size[1])
+        q = rel @ self.cam_rot  # camera coordinates: x right, y down, z ahead
+        r = self.SPHERES[:, 2]
+        X, Y, Z = q[:, 0], q[:, 1], q[:, 2]
+        if np.any(Z <= 1.01 * r):
+            return self._pixels.reshape(-1)
+        den = Z * Z - r * r
+        lo, hi = [], []
+        for P, c in ((X, self._centre[0]), (Y, self._centre[1])):
+            root = r * np.sqrt(P * P + Z * Z - r * r)
+            lo.append(self._focal * ((P * Z - root) / den).min() + c - 0.5)
+            hi.append(self._focal * ((P * Z + root) / den).max() + c - 0.5)
+        u0, v0 = max(int(np.floor(lo[0])) - 2, 0), max(int(np.floor(lo[1])) - 2, 0)
+        u1, v1 = min(int(np.ceil(hi[0])) + 3, w), min(int(np.ceil(hi[1])) + 3, h)
+        return self._pixels[v0:v1, u0:u1].reshape(-1)
+
     def render_ids(self):
         """Depth per pixel and what it hit: -1 sky, 0 ground, 1 + sphere."""
-        cam = np.array([self.x, -2.2, 1.2])
-        d = self._dirs
-        depth = np.full(len(d), 10.0)
-        hit = np.full(len(d), -1)
-        down = d[:, 2] < 0
-        t = np.where(down, -cam[2] / np.where(down, d[:, 2], -1.0), np.inf)
-        depth = np.where(down, t, depth)
-        hit[down] = 0
+        cam = np.array([self.x, self.CAM_Y, self.CAM_Z])
+        depth, hit = self._depth0.copy(), self._hit0.copy()
         centres = np.stack([self.x + self.SPHERES[:, 0] + self.pose[:, 0], np.zeros(8),
                             self.SPHERES[:, 1] + self.pose[:, 1]], -1)
-        a = (d * d).sum(-1)
-        for i, (c, r) in enumerate(zip(centres, self.SPHERES[:, 2])):
-            oc = cam - c
-            b = d @ oc
-            disc = b * b - a * (oc @ oc - r * r)
+        win = self._window(centres - cam)
+        if len(win):
+            d, a = self._dirs[win], self._a[win, None]
+            oc = cam - centres
+            b = np.stack([d @ o for o in oc], -1)
+            c = np.array([o @ o for o in oc]) - self.SPHERES[:, 2] ** 2
+            disc = b * b - a * c
             tt = (-b - np.sqrt(np.maximum(disc, 0.0))) / a
-            near = (disc > 0) & (tt > 0) & (tt < depth)
-            depth[near], hit[near] = tt[near], i + 1
+            tt = np.where((disc > 0) & (tt > 0), tt, np.inf)
+            first = tt.argmin(-1)  # the nearest sphere, the first of equals, as spheres cast in turn keep it
+            t = tt[np.arange(len(win)), first]
+            near = t < depth[win]
+            depth[win[near]], hit[win[near]] = t[near], first[near] + 1
         h, w = int(self.image_size[1]), int(self.image_size[0])
         return depth.reshape(h, w).astype(np.float32), hit.reshape(h, w), cam
 
     def get_obs(self):
         depth, hit, cam = self.render_ids()
         h, w = depth.shape
-        world = cam + self._dirs * depth.reshape(-1, 1)
-        checker = ((np.floor(world[:, 0] * 4) + np.floor(world[:, 1] * 4)) % 2).reshape(h, w)
-        rgb = np.empty((h, w, 3), np.uint8)
-        rgb[:] = self.SKY
-        ground = hit == 0
-        rgb[ground] = np.where(checker[ground, None] > 0, self.GROUND[0], self.GROUND[1])
-        body = hit > 0
-        rgb[body] = np.stack([200 - 10 * hit[body], 120 + 5 * hit[body], 60 + 0 * hit[body]], -1)
+        hit = hit.reshape(-1)
+        colour = np.where(hit > 0, hit + 2, 0)  # sky 0, the ground's two squares 1 and 2, sphere i 2 + i
+        ground = np.flatnonzero(hit == 0)
+        checker = (np.floor((self.x + self._ground_dx[ground]) * 4) + self._ground_row[ground]) % 2
+        colour[ground] = np.where(checker > 0, 1, 2)
+        rgb = self._palette[:, colour].reshape(3, h, w)
         cm = np.zeros(12, np.float32)
         cm[:9] = self.cam_rot.reshape(-1)
         cm[9] = cam[2]
-        return {"depth": depth[None], "rgb": np.ascontiguousarray(rgb.transpose(2, 0, 1)), "cam": cm.reshape(1, 1, 12)}
+        return {"depth": depth[None], "rgb": rgb, "cam": cm.reshape(1, 1, 12)}
 
     def render(self, mode="rgb_array", **kwargs):
         return self.get_obs()["rgb"].transpose(1, 2, 0)

@@ -7,8 +7,11 @@ same seed after the window (``make``).  Only the names and shapes are
 read from the program.  One uniform draw of every leaf at once, on the
 device, from a ``torch.Generator`` seeded with the run's seed:
 
-- a dense kernel (``[out, in]``, or a stacked ensemble's ``[heads, in,
-  out]``) and its bias: uniform in +-1/sqrt(fan in), torch's default;
+- a kernel and its bias: uniform in +-1/sqrt(fan in), torch's default;
+  the encoder's leaves (``visual.``) take their fan in from the encoder's
+  module (``encoders/<name>.py``: a convolution's counts its taps), the
+  heads' from a dense kernel, ``[out, in]`` or a stacked ensemble's
+  ``[heads, in, out]``;
 - a LayerNorm's scale: 1 + uniform(-0.1, 0.1); its shift: uniform(-0.1, 0.1).
 """
 
@@ -19,18 +22,18 @@ from typing import Dict, Iterable, Tuple
 
 import torch
 
-
-def _is_norm(name: str) -> bool:
-    return "LayerNorm" in name or name.endswith(("final_ln.weight", "final_ln.bias"))
+from . import encoders
 
 
-def _fan_in(name: str, shapes: Dict[str, Tuple[int, ...]]) -> int:
+def _heads_fan_in(name: str, shapes: Dict[str, Tuple[int, ...]]) -> int:
     kernel = shapes[name[: -len("bias")] + "weight"] if name.endswith(".bias") else shapes[name]
     return int(kernel[1])  # [out, in] and [heads, in, out] alike
 
 
-def make(shapes: Dict[str, Tuple[int, ...]], seed: int, device) -> Dict[str, torch.Tensor]:
-    """Weights for the leaves ``shapes`` (name -> shape), from ``seed``."""
+def make(shapes: Dict[str, Tuple[int, ...]], seed: int, device, encoder: str) -> Dict[str, torch.Tensor]:
+    """Weights for the leaves ``shapes`` (name -> shape), from ``seed``; the
+    configuration's encoder ``encoder`` seeds its own leaves."""
+    enc = encoders.load(encoder)
     names = sorted(shapes)
     sizes = [math.prod(shapes[n]) for n in names]
     gen = torch.Generator(device=device).manual_seed(int(seed))
@@ -39,10 +42,11 @@ def make(shapes: Dict[str, Tuple[int, ...]], seed: int, device) -> Dict[str, tor
     for name, size in zip(names, sizes):
         x = u[start:start + size].reshape(shapes[name])
         start += size
-        if _is_norm(name):
+        own = name.startswith(encoders.PREFIX)
+        if enc.is_norm(name) if own else "LayerNorm" in name:
             out[name] = 1.0 + 0.1 * x if name.endswith(".weight") else 0.1 * x
         else:
-            out[name] = x / math.sqrt(_fan_in(name, shapes))
+            out[name] = x / math.sqrt(enc.fan_in(name, shapes) if own else _heads_fan_in(name, shapes))
     return out
 
 

@@ -4,11 +4,12 @@ import pytest
 import tiny  # noqa: F401  (puts the benchmark on the path)
 
 from pcbench import flops
+from pcbench.encoders import pointnet
 
 
 def test_body_flop_and_bound():
     # 2 rows x 3 points, 4 channels, widths 5, 6, 7: 2*2*3*(4*5 + 5*6 + 6*7) = 12 * 92
-    assert flops.body_flop(2, 3, 4, (5, 6, 7)) == 1104
+    assert pointnet.body_flop(2, 3, 4, (5, 6, 7)) == 1104
     # f32 runs as three TF32 products: 1104 FLOP at 495e12 / 3 FLOP/s
     ops_ms = 1e3 * 1104 / (495e12 / 3)
     # bytes: x (2*3*4) + W (4*5 + 5*6 + 6*7) in f32, biases and norms 4*(5 + 3*6 + 3*7), out 2*7*(4 + 4)
@@ -35,7 +36,7 @@ def test_update_flops_by_hand():
     target = encode + actor + critic
     critic_step = encode + critic + 2 * critic + body_bwd + final_bwd
     actor_step = actor + (2 * actor - 2 * 2 * 9 * 10) + critic + critic
-    got = flops.update_flops(s)
+    got = flops.update_flops(s, "pointnet")
     assert got["target"] == target
     assert got["critic_step"] == critic_step
     assert got["actor_step"] == actor_step

@@ -34,7 +34,8 @@ def _ctx(trace):
     cfg = harness.Cell("drq_walker_pn.updates").config
     return {"trace": trace, "config": cfg, "kernel_rows": [16, 256, 512], "spans": {"collect_ms": 12.5},
             "launches": {"pointnet_fused_fwd_idx": 1, "pointnet_fused_fwd_max": 0},
-            "window": {"updates": 320, "seconds": 2.0}, "flops": flops.update_flops(cfg["shapes"])}
+            "window": {"updates": 320, "seconds": 2.0}, "chips": 1,
+            "flops": flops.update_flops(cfg["shapes"], "pointnet")}
 
 
 def test_device_and_graph_idle():

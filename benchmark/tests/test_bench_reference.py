@@ -15,13 +15,9 @@ from pcbench import drivers, harness
 
 
 def _f32(name: str) -> dict:
-    tw = tiny.tweak(name)
-    tw["config"]["agent_cfg"]["bf16"] = False
-    if name == "drq_walker_pn":  # float32 replay storage and act upload (the config packs both narrower)
-        tw["config"]["replay_cfg"]["transfer_cfg"] = {"pack_features": "float32"}
-        tw["config"]["reference"]["packed"] = False
-        tw["config"]["agent_cfg"]["obs_transfer_cfg"] = {"pos_encoding_on_device": True, "pack_dtype": None}
-    return tw
+    """The tiny sizes, the program in float32 (``agent_cfg.bf16`` off, and
+    float32 replay storage and act upload where the config packs them)."""
+    return tiny.tweak(name, float32=True)
 
 
 @pytest.mark.parametrize("workload", ["drq_walker_pn.updates", "sac_maniskill_pn.updates", "drq_walker_pn.loop"])
@@ -51,7 +47,8 @@ def test_reference_imports_nothing_of_the_port():
         "spec = reference.Spec(dict(algo='DrQ', batch_size=4, num_aug=2, gamma=0.9, alpha=0.1, action_dim=2,\n"
         "    actor_update_interval=2, target_update_interval=2, target_tau=0.01, actor_layers=2, critic_layers=2,\n"
         "    critic_heads=2, log_std_bound=[-10, 2], lr=dict(critic=1e-3, actor=1e-3, alpha=1e-3),\n"
-        "    betas=dict(critic=[0.9, 0.999], actor=[0.9, 0.999], alpha=[0.5, 0.999]), translation=[0.04, 0, 0.04]))\n"
+        "    betas=dict(critic=[0.9, 0.999], actor=[0.9, 0.999], alpha=[0.5, 0.999]), translation=[0.04, 0, 0.04],\n"
+        "    encoder='pointnet'))\n"
         "shapes = {'visual.conv.Dense_0.weight': (4, 5), 'visual.conv.Dense_0.bias': (4,),\n"
         "  'visual.conv.Dense_1.weight': (4, 4), 'visual.conv.Dense_1.bias': (4,),\n"
         "  'visual.conv.LayerNorm_0.weight': (4,), 'visual.conv.LayerNorm_0.bias': (4,),\n"
@@ -63,7 +60,7 @@ def test_reference_imports_nothing_of_the_port():
         "  'actor.final_mlp.Dense_1.weight': (4, 6), 'actor.final_mlp.Dense_1.bias': (4,),\n"
         "  'critic.VmapMLP_0.Dense_0.weight': (2, 5, 6), 'critic.VmapMLP_0.Dense_0.bias': (2, 6),\n"
         "  'critic.VmapMLP_0.Dense_1.weight': (2, 6, 1), 'critic.VmapMLP_0.Dense_1.bias': (2, 1)}\n"
-        "w = weights.make(shapes, 3, 'cpu')\n"
+        "w = weights.make(shapes, 3, 'cpu', 'pointnet')\n"
         "g = torch.Generator().manual_seed(0)\n"
         "b = dict(obs={'pcd': torch.rand(4, 7, 5)}, next_obs={'pcd': torch.rand(4, 7, 5)}, actions=torch.rand(4, 2),\n"
         "         rewards=torch.rand(4, 1), dones=torch.zeros(4, 1))\n"

@@ -2,10 +2,15 @@
 
 ``tweak(config_name)`` is what ``pcbench.harness.main(..., tweak=)`` patches
 into a configuration: every width, the batch, the points and the replay cut
-so that a cell runs on the CPU in seconds.  The timed sizes are the files'."""
+so that a cell runs on the CPU in seconds.  Each configuration's sizes are
+the file ``tiny/<config>.json``: ``config``, the patch, and ``float32``,
+what further makes its program compute in float32 (``tweak(name,
+float32=True)``), where a sound run agrees with the reference to rounding.
+The timed sizes are the configuration files'."""
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 
@@ -15,47 +20,20 @@ for p in (BENCH, ROOT):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-WIDTHS, FEATURE, HIDDEN, BATCH = [8, 16, 32], 8, 32, 16
+TRAFFIC = {"fill_rows": 600, "warm_rounds": 2, "warm_cycles": 3, "trace_rounds": 0}
 
 
-def _nets(feature_in: int, action: int, critic_in: int, fused: bool) -> dict:
-    return {
-        "batch_size": BATCH,
-        "actor_cfg": {"nn_cfg": {"visual_nn_cfg": {"mlp_spec": WIDTHS, "out_channels": FEATURE, "fused": fused},
-                                 "mlp_cfg": {"mlp_spec": [feature_in, HIDDEN, HIDDEN, 2 * action]}}},
-        "critic_cfg": {"nn_cfg": {"mlp_cfg": {"mlp_spec": [critic_in, HIDDEN, HIDDEN, 1]}}},
-    }
+def sizes(name: str) -> dict:
+    with open(os.path.join(BENCH, "tests", "tiny", f"{name}.json")) as f:
+        return json.load(f)
 
 
-def tweak(name: str, fault=None) -> dict:
-    if name == "drq_walker_pn":
-        frames, n_points, ground, A = 3, 16, 4, 6
-        pts = frames * n_points
-        config = {
-            "agent_cfg": _nets(FEATURE, A, FEATURE + A, True),
-            "obs_shape": {"xyz": [3, pts], "rgb": [3, pts], "pos_encoding": [3, pts]},
-            "env": {"n_points": n_points, "num_ground": ground, "image_size": [16, 16]},
-            "env_cfg": {"n_points": n_points, "num_ground": ground, "image_size": [16, 16]},
-            "replay_cfg": {"capacity": 600},
-            "rollout_cfg": {"num_procs": 2},
-            "train_cfg": {"n_steps": 2, "n_updates": 2, "warm_steps": 40, "n_log": 6},
-            "shapes": {"batch_size": BATCH, "points": pts, "widths": WIDTHS, "feature": FEATURE,
-                       "hidden": [HIDDEN, HIDDEN]},
-            "reference": {"batch_size": BATCH},
-        }
-    elif name == "sac_maniskill_pn":
-        A, S = 22, 38
-        config = {
-            "agent_cfg": _nets(FEATURE + S, A, FEATURE + S + A, True),
-            "replay_cfg": {"capacity": 600},
-            "rollout_cfg": {"num_procs": 2},
-            "train_cfg": {"n_steps": 2, "n_updates": 1, "warm_steps": 40, "n_log": 6},
-            "shapes": {"batch_size": BATCH, "widths": WIDTHS, "feature": FEATURE, "hidden": [HIDDEN, HIDDEN]},
-            "reference": {"batch_size": BATCH},
-        }
-    else:
-        raise KeyError(name)
-    out = {"config": config, "traffic": {"fill_rows": 600, "warm_rounds": 2, "warm_cycles": 3, "trace_rounds": 0}}
+def tweak(name: str, fault=None, float32: bool = False) -> dict:
+    from pcbench.drivers import merge
+
+    tiny = sizes(name)
+    config = merge(tiny["config"], tiny["float32"]) if float32 else tiny["config"]
+    out = {"config": config, "traffic": dict(TRAFFIC)}
     if fault:
         out["fault"] = fault
     return out

@@ -122,7 +122,8 @@ def freeze(name: str) -> dict:
                   action=f["action_dim"], hidden=amlp[1:-1], heads=agent["critic_cfg"]["num_heads"],
                   actor_interval=agent["actor_update_interval"])
     aug = agent.get("obs_aug") or {}
-    reference = dict(algo=agent["type"], batch_size=agent["batch_size"], num_aug=agent.get("num_aug", 1),
+    reference = dict(algo=agent["type"], encoder=vis["type"].lower(), batch_size=agent["batch_size"],
+                     num_aug=agent.get("num_aug", 1),
                      gamma=agent["gamma"], alpha=agent["alpha"], action_dim=f["action_dim"],
                      actor_update_interval=agent["actor_update_interval"],
                      target_update_interval=agent["target_update_interval"],
