@@ -27,8 +27,10 @@ capture; the second call captures it (nothing runs) and replays it; later
 calls replay.  A capture does not execute, but its Python runs: the
 agent's update counter and metric keys are put back after it, and the
 fused PointNet kernels' launch counts captured in it (the forward's and the
-winner backward's) are taken back and added again on every replay, which
-is where those kernels launch.  Every
+winner backward's) and its 3D convolution calls (``ops/conv.call_counts``)
+are taken back and added again on every replay, which is where those
+kernels launch; ``replay_launches`` keeps what one replay of each program
+adds.  Every
 generator the body draws from (the agent's, its act generator, the
 replay's) is registered with the graph, so a replay draws what the eager
 step would and advances the generators as it would.  Returned tensors
@@ -87,7 +89,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops import pointnet_fused
+from ..ops import conv, pointnet_fused
 from ..utils.trace import GRAPHS_CAPTURE, GRAPHS_EAGER, GRAPHS_REPLAY, GRAPHS_UPLOAD, span
 from ..utils.tree_ops import tree_map
 
@@ -113,7 +115,13 @@ class _Program:
 
 
 # The launch counters a capture takes back and a replay adds again.
-_LAUNCH_COUNTERS = (pointnet_fused.launch_counts, pointnet_fused.bwd_launch_counts)
+_LAUNCH_COUNTERS = (pointnet_fused.launch_counts, pointnet_fused.bwd_launch_counts, conv.call_counts)
+
+# What one replay of each program captured in this process adds to the launch
+# counters, by the repr of the program's key (the latest capture of a key).  It
+# outlives the programs and their agent, so that a trace of replays can be held
+# to it after the fact (``UpdatePrograms.stats`` gives the same per program).
+replay_launches: Dict[str, Dict[str, int]] = {}
 
 
 def _counter(name: str) -> Dict[str, int]:
@@ -184,6 +192,7 @@ class UpdatePrograms:
             with span(GRAPHS_CAPTURE):
                 prog = self.programs[key] = self._capture(key, body, inputs, generators)
             self.captures += 1
+            replay_launches[repr(key)] = prog.launches
         if inputs is not None:
             with span(GRAPHS_UPLOAD):
                 tree_map(lambda dst, src: dst.copy_(_as_tensor(src)), prog.inputs, inputs)

@@ -8,16 +8,29 @@ flag for its forward and for its backward, so an f32 encoder computes in
 f32 whatever the process's flags say.  ``ALLOW_TF32`` is the setting; it is
 False, and ``tools/profile_torch_slice.py`` flips it only to time the TF32
 variant.  On the CPU the flag has no effect.
+
+``call_counts`` counts the 3D convolution calls by kind: ``conv`` adds a
+forward call, its backward an input-gradient call and a weight-gradient
+call where it computes them.  A captured update program takes its calls
+back and each replay adds them again (``algorithms/graphs.py``), as for
+the fused PointNet kernels' launches, so the counts say what ran on the
+card.  No span opens inside an encoder: the body of a captured program
+never opens one (``utils/trace.py``), so a reader of a trace holds the
+convolution kernels it finds to these counts instead.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, Sequence
 
 import torch
 import torch.nn.functional as F
 
 ALLOW_TF32 = False
+
+# 3D convolution calls in this process, by kind (a reader takes the
+# difference of two reads, as with ``pointnet_fused.launch_counts``).
+call_counts: Dict[str, int] = {"conv3d_fwd": 0, "conv3d_dgrad": 0, "conv3d_wgrad": 0}
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
@@ -34,7 +47,10 @@ class _Conv(torch.autograd.Function):
         ctx.save_for_backward(x, weight)
         ctx.conf = (stride, padding, allow_tf32, bias is not None)
         with _flags(allow_tf32):
-            return _CONV[x.dim() - 2](x, weight, bias, stride, padding)
+            out = _CONV[x.dim() - 2](x, weight, bias, stride, padding)
+        if x.dim() == 5:
+            call_counts["conv3d_fwd"] += 1
+        return out
 
     @staticmethod
     def backward(ctx, grad):
@@ -45,6 +61,9 @@ class _Conv(torch.autograd.Function):
             gx, gw, gb = torch.ops.aten.convolution_backward(
                 grad, x, weight, [weight.shape[0]] if has_bias else None, list(stride), list(padding),
                 [1] * len(stride), False, [0] * len(stride), 1, [need[0], need[1], need[2] and has_bias])
+        if x.dim() == 5:
+            call_counts["conv3d_dgrad"] += int(need[0])
+            call_counts["conv3d_wgrad"] += int(need[1])
         return gx, gw, gb, None, None, None
 
 

@@ -610,6 +610,48 @@ def test_a_walker_shaped_update_replays_its_backward_launches_on_gpu():
     assert prog["launches"]["pointnet_fused_bwd"] == added[0] and prog["replays"] == 2
 
 
+def test_the_launch_counters_hold_the_conv_calls():
+    """The 3D convolution calls are among the counters a capture takes back
+    and a replay adds again, beside the fused PointNet kernels' launches,
+    and no name is in two counters (a replay adds each count by its name)."""
+    from pointcloud_rl_torch.algorithms import graphs
+    from pointcloud_rl_torch.ops import conv
+    from pointcloud_rl_torch.ops import pointnet_fused as pf
+
+    counters = graphs._LAUNCH_COUNTERS
+    assert any(c is conv.call_counts for c in counters)
+    assert any(c is pf.bwd_launch_counts for c in counters) and any(c is pf.launch_counts for c in counters)
+    assert set(conv.call_counts) == {"conv3d_fwd", "conv3d_dgrad", "conv3d_wgrad"}
+    names = [k for c in counters for k in c]
+    assert len(names) == len(set(names))
+    assert all(graphs._counter(k) is conv.call_counts for k in conv.call_counts)
+
+
+@pytest.mark.gpu
+def test_a_voxel_update_replays_its_conv_calls_on_gpu():
+    """DrQ scans of the voxel slice: the eager run counts each 3D
+    convolution call (two encodes of three convolutions forward, the
+    critic's three input and three weight gradients per update), the
+    captured program takes them back, and each replay adds them again, as
+    ``stats()`` and ``graphs.replay_launches`` say one replay does."""
+    from pointcloud_rl_torch.algorithms import graphs
+    from pointcloud_rl_torch.ops import conv
+
+    _card()
+    graphed, _, mem, _ = _card_agents("voxel")
+    added = []
+    for _ in range(3):  # the eager run, the capture and a replay, a replay
+        before = dict(conv.call_counts)
+        graphed.update_parameters_scan(mem, 2)
+        added.append({k: v - before[k] for k, v in conv.call_counts.items()})
+    per_update = {"conv3d_fwd": 6, "conv3d_dgrad": 3, "conv3d_wgrad": 3}
+    assert added == [{k: 2 * v for k, v in per_update.items()}] * 3
+    ((key, prog),) = graphed._programs.stats()["programs"].items()
+    assert prog["replays"] == 2
+    assert {k: prog["launches"][k] for k in per_update} == added[1]
+    assert graphs.replay_launches[key] == prog["launches"]
+
+
 @pytest.mark.gpu
 def test_a_programs_rebuilds_are_traced_and_counted_on_gpu():
     """Four scans of one key in a profiler session: the first runs eagerly

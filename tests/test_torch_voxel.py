@@ -218,6 +218,28 @@ def test_voxel_cnn_matches_jax_with_gradients(impl, grid_size):
     check_output_and_grads(*voxel_pair(impl, grid_size), _voxel_obs(1), 12)
 
 
+def test_dense_voxel_cnn_counts_its_conv_calls():
+    """An eager CPU forward of the dense ``VoxelCNN`` adds one forward call
+    per conv layer to ``ops/conv.call_counts``, and its backward one input
+    gradient and one weight gradient per layer (the stem's parameters need
+    conv 0's input gradient); a forward with no gradient adds forwards only."""
+    from pointcloud_rl_torch.ops import conv
+
+    t_net = t_build_all(dict(type="SparseCNN", in_channels=8, out_channels=12, voxel_size=0.1, mlp_spec=[8, 12, 16],
+                             stem_channels=[8, 8], grid_size=(8, 8, 8), impl="dense"),
+                        generator=torch.Generator().manual_seed(0))
+    obs = {k: _t(v) for k, v in _voxel_obs(1).items()}
+    before = dict(conv.call_counts)
+    with torch.no_grad():
+        t_net(obs)
+    assert {k: v - before[k] for k, v in conv.call_counts.items()} == {"conv3d_fwd": 3, "conv3d_dgrad": 0,
+                                                                        "conv3d_wgrad": 0}
+    before = dict(conv.call_counts)
+    t_net(obs).sum().backward()
+    assert {k: v - before[k] for k, v in conv.call_counts.items()} == {"conv3d_fwd": 3, "conv3d_dgrad": 3,
+                                                                        "conv3d_wgrad": 3}
+
+
 @pytest.mark.parametrize("n, want", [(32, (1, 1)), (8, (1, 1)), (15, (1, 2)), (17, (1, 2)), (3, (1, 2)), (1, (1, 2))])
 def test_same_padding_is_flax_same(n, want):
     """flax's SAME padding for k=4, s=2: ceil(n / 2) outputs, asymmetric on odd sizes."""
