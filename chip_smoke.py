@@ -523,14 +523,14 @@ def phase_sass(lib_path: str) -> dict:
     for entry, body in (("pointnet_fused_fwd_idx", "pointnet_body_idx_kernel"),
                         ("pointnet_fused_fwd_max", "pointnet_body_max_kernel")):
         kern = {k: v for k, v in counts.items() if body in k}
-        if len(kern) != 2:
-            fail(f"expected an f32 and a bf16 {body} in the library, found {sorted(kern)}")
+        if len(kern) != 3:  # the chunked body in f32 and bf16, the persistent one in bf16
+            fail(f"expected an f32 and a bf16 {body} and a bf16 {body}_persistent in the library, found {sorted(kern)}")
+        labels = {k: ("bf16" if "bfloat16" in k else "f32") + ("_persistent" if "persistent" in k else "") for k in kern}
         for k, (hgmma, hmma) in sorted(kern.items()):
-            dt = "bf16" if "bfloat16" in k else "f32"
-            print(f"[sass] {entry} {body}<{dt}>: {hgmma} HGMMA, {hmma} HMMA", flush=True)
+            print(f"[sass] {entry} {body}<{labels[k]}>: {hgmma} HGMMA, {hmma} HMMA", flush=True)
             if hgmma == 0:
-                fail(f"{body}<{dt}> holds no HGMMA instruction: the tensor cores are unused")
-        per_entry[entry] = {("bf16" if "bfloat16" in k else "f32"): v[0] for k, v in kern.items()}
+                fail(f"{body}<{labels[k]}> holds no HGMMA instruction: the tensor cores are unused")
+        per_entry[entry] = {labels[k]: v[0] for k, v in kern.items()}
     for k, (hgmma, hmma) in sorted(counts.items()):
         if "pointnet_body" not in k:
             print(f"[sass] {k}: {hgmma} HGMMA, {hmma} HMMA", flush=True)
@@ -588,9 +588,15 @@ def check_copies(pf, dname: str) -> None:
     x, params = make_inputs(4, 400, 8, (128, 128, 256), seed=3)
     x = torch.cat([x, x, x], dim=1).contiguous()
     lib = pf.load_library()
-    tile = lib.pointnet_fused_tile_rows(int(cdt is not None), 8, 128, 128, 256)
-    chunks = pf.choose_chunks(4, 1200, tile, torch.cuda.get_device_properties(0).multi_processor_count)
-    per_chunk = -(-(-(-1200 // tile)) // chunks) * tile
+    bf16 = int(cdt is not None)
+    tile = lib.pointnet_fused_tile_rows(bf16, 8, 128, 128, 256)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    if lib.pointnet_fused_persistent(bf16, 8, 128, 128, 256):  # runs of (batch row, tile) pairs
+        chunks, per = pf.choose_runs(4, 1200, tile, n_sm)
+        per_chunk = per * tile
+    else:
+        chunks = pf.choose_chunks(4, 1200, tile, n_sm)
+        per_chunk = -(-(-(-1200 // tile)) // chunks) * tile
     if per_chunk > 400:
         fail(f"copies: {chunks} chunks of {per_chunk} points do not separate the copies")
     with torch.no_grad():
@@ -800,6 +806,11 @@ def phase_train(work: str, name: str, config: str, opts, prefix: str, pointnet: 
     if not summary["device"].startswith("cuda"):
         fail(f"{name} ran on {summary['device']}")
     check_launches(name, "training", run_launches(summary), pointnet, TRAIN_KERNELS)
+    # every forward launch took the body design of its dtype (the runs' widths fit the persistent body)
+    design = "bf16_persistent" if "agent_cfg.bf16=True" in opts else "f32_3xtf32"
+    n_fwd = sum(summary["launches"].values())
+    if summary["plans"] != {k: (n_fwd if k == design else 0) for k in summary["plans"]}:
+        fail(f"{name}: forward launches by body design {summary['plans']}, expected all {n_fwd} on {design}")
     for ckpt in checkpoints(total):
         if not osp.isfile(osp.join(wd, "models", ckpt)):
             fail(f"{name}: checkpoint {ckpt} missing")

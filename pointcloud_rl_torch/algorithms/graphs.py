@@ -26,8 +26,9 @@ makes once per device, so that nothing is uploaded from the host inside a
 capture; the second call captures it (nothing runs) and replays it; later
 calls replay.  A capture does not execute, but its Python runs: the
 agent's update counter and metric keys are put back after it, and the
-fused PointNet kernels' launch counts captured in it (the forward's and the
-winner backward's) and its 3D convolution calls (``ops/conv.call_counts``)
+fused PointNet kernels' launch counts captured in it (the forward's, by
+entry point and by body design, and the winner backward's) and its 3D
+convolution calls (``ops/conv.call_counts``)
 are taken back and added again on every replay, which is where those
 kernels launch; ``replay_launches`` keeps what one replay of each program
 adds.  Every
@@ -115,7 +116,8 @@ class _Program:
 
 
 # The launch counters a capture takes back and a replay adds again.
-_LAUNCH_COUNTERS = (pointnet_fused.launch_counts, pointnet_fused.bwd_launch_counts, conv.call_counts)
+_LAUNCH_COUNTERS = (pointnet_fused.launch_counts, pointnet_fused.bwd_launch_counts, pointnet_fused.plan_counts,
+                    conv.call_counts)
 
 # What one replay of each program captured in this process adds to the launch
 # counters, by the repr of the program's key (the latest capture of a key).  It

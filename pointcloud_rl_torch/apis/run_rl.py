@@ -43,7 +43,8 @@ writes ``run_summary.json`` into the work dir: the device, step counts,
 throughput over the main loop, the replay (type, device, bytes of storage;
 ``replay_restored``: the transitions a resume restored from the
 ``train_cfg.save_replay`` snapshot ``models/replay_latest.h5``),
-the fused-PointNet kernel launches of the process, the update programs'
+the fused-PointNet kernel launches of the process (``launches``, and
+``plans``: the forward launches by body design), the update programs'
 counters (``programs``: eager first runs, captures, invalidations, and
 each program's replays; ``algorithms/graphs.py``), evaluation results, and
 the ``pointcloud_rl_tpu`` and ``jax`` modules loaded in the process
@@ -450,6 +451,7 @@ def run(cfg: Config, work_dir: str, seed: int, args, world: int = 1) -> dict:
         summary["replay"] = replay_summary(replay)
         summary["launches"] = dict(pointnet_fused.launch_counts)
         summary["bwd_launches"] = dict(pointnet_fused.bwd_launch_counts)
+        summary["plans"] = dict(pointnet_fused.plan_counts)
         programs = getattr(agent, "_programs", None)  # none where the updates run eagerly
         summary["programs"] = programs.stats() if programs is not None else None
         summary["pointcloud_rl_tpu_modules"] = sorted(

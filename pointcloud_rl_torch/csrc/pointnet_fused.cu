@@ -17,54 +17,92 @@
 // What bounds it.  At the training slice's shape (B=256, N=1200, C_in=8,
 // widths 128/128/256) one encode is 2*B*N*(8*128 + 128*128 + 128*256) =
 // 30.8 GFLOP against a 9.8 MB read of x: about 3,000 FLOP per byte, so the
-// body is bound by the matrix units, never by device memory.  In f32 the
-// card has no f32 tensor-core product, so the two large layers run as
+// products are bound by the matrix units, never by device memory.  In f32
+// the card has no f32 tensor-core product, so the two large layers run as
 // 3xTF32 (below): 3 x 30.8 GFLOP at 495 TFLOP/s, a bound of 0.19 ms.  In
-// bf16 the bound is 30.8 GFLOP at 989 TFLOP/s, 0.03 ms.  At the act shape
-// (B=4) the bound is a few microseconds: there launch latency and filling
-// the 132 SMs decide.
+// bf16 the bound is 30.8 GFLOP at 989 TFLOP/s, 0.03 ms, and what binds the
+// kernel is the per-point work on the CUDA cores around the products: a
+// 64-point tile's products take under 1 us of one SM's tensor cores, its
+// epilogues some 2,000 instructions a thread.  On the H100, of a
+// warpgroup's ~11.8k cycles a 64-point tile (the two warpgroups at once)
+// the two LayerNorms take ~48%, the layer-3 product's window ~19%, the
+// max-pool keys ~11%.  At the act shape (B=4) the bound is a few
+// microseconds: there launch latency and filling the 132 SMs decide.
 //
-// What the design does about it.
+// The bf16 body (the persistent design; widths whose weights fit in
+// shared memory, all of the main path's).
+//   * Persistent CTAs.  The (batch row, 64-point tile) pairs are cut, in
+//     row-major order, into one contiguous run per CTA (the wrapper's
+//     `choose_runs`: one wave of CTAs, one an SM; at the act shapes a row's
+//     tiles spread over many CTAs).  A CTA loads W1, W2, W3 (bf16, in the
+//     wgmma layout, zero-padded to 256 columns: 104-136 KB at the main
+//     path's widths) and the small parameters once and walks its run, the
+//     next x tile in flight.
+//   * Two warpgroups, each on its own 64-point tile: warpgroup w takes the
+//     run's tiles w, w + 2, ...  A tile: x -> layer 1 as wgmma k16 steps
+//     (C_in padded to 16) -> bias + ReLU -> h1 (bf16, shared memory) ->
+//     layer 2 -> LN + ReLU -> h2 -> layer 3 -> LN + ReLU -> keys.  The two
+//     take turns at the layer-3 product (named barriers), so one's
+//     LayerNorm and keys run on the CUDA cores while the other's product is
+//     on the tensor cores; a warpgroup stages its next x tile while its own
+//     layer-3 product runs.  Every product is 256 wide, so the wgmma issue
+//     has no branch, and the body is a kernel of its own: the compiler
+//     would otherwise wait for each wgmma before the next.  LayerNorm reads
+//     its parameters as float2 and float4 (a thread's columns come in
+//     adjacent pairs) and sums in two chains.
+//   * The max-pool in registers, as packed keys.  After the ReLU every h3
+//     value is >= +0 and is rounded to bf16; with the sign bit cleared (-0
+//     as +0) its 16 bits order as an unsigned integer, so
+//         key = bf16 bits << 16 | (0xFFFF - the point's index in the partial)
+//     gives the larger value by one unsigned max, and of equal values the
+//     lower index: the first-index argmax.  A thread keeps one key for each
+//     of its 64 columns over all its tiles of a row (its two rows folded
+//     in); no shuffle and no shared memory per tile.  The max-only kernel
+//     keeps the bf16 values alone, two a register, under a bf16 max.
+//   * Where a run leaves a batch row, each warpgroup reduces its keys over
+//     the 8 lanes of a column (shuffles) and its 4 warps (shared memory)
+//     and writes its partial (max, first index) for that row.  A run spans
+//     at most 1024 tiles (65,536 points), so the index fits 16 bits for
+//     any N.  The merge launch takes a row's partials from the CTAs whose
+//     runs touch it, ties to the lower index: deterministic, no atomics.
+//
+// The chunked body (f32, and bf16 too wide for the persistent one).
 //   * The point axis is split across CTAs.  The grid is (batch row x point
 //     chunk); the wrapper picks the chunk count from B and N so that the
 //     grid fills the SMs (many chunks per row at B=4, one at B=256).  A CTA
 //     walks its chunk's tiles of 64 or 128 points in order and writes a
-//     partial (max, first index) per channel to a scratch buffer; a second
-//     small launch merges the partials in chunk order with a strict `>`, so
-//     ties go to the earlier chunk.  Inside a CTA, ties between rows go to
-//     the lower point index.  The result is exactly the first-index argmax
-//     of one sequential pass, deterministic, with no atomics.
+//     partial (max, first index) per channel to a scratch buffer; the merge
+//     launch takes them in chunk order, so ties go to the earlier chunk.
+//     Inside a CTA, ties between rows go to the lower point index.
 //   * Layers 2 and 3 run on tensor cores with `wgmma` (m64n64, one 64-row
 //     warpgroup per 64 points of the tile).  bf16: bf16 operands, f32
-//     accumulators, the exact semantics of `_body_rows`.  f32: 3xTF32 -- each
-//     operand is split into a TF32 high part and a TF32 remainder and the
-//     accumulator sums hi*hi + hi*lo + lo*hi in f32, which keeps f32
-//     accuracy (a single TF32 pass would move outputs by ~1e-3).  Layer 1
-//     (K = C_in, 8 or 9) stays on CUDA cores, register-blocked 4 rows x one
-//     16-byte column group per thread.
-//   * Operands live in shared memory in the no-swizzle K-major core-matrix
-//     layout that the `wgmma` descriptors read (8 rows x 16 bytes per core
-//     matrix).  Widths that are no multiple of 64 are zero-padded in the
-//     staged weights, and the padding is left out of the LayerNorm
-//     statistics.
+//     accumulators.  f32: 3xTF32 -- each operand is split into a TF32 high
+//     part and a TF32 remainder and the accumulator sums hi*hi + hi*lo +
+//     lo*hi in f32, which keeps f32 accuracy (a single TF32 pass would move
+//     outputs by ~1e-3).  Layer 1 (K = C_in, 8 or 9) stays on CUDA cores,
+//     register-blocked 4 rows x one 16-byte column group per thread.
 //   * Weights: a prep launch writes W2/W3 once per call, already split (f32)
 //     and in the core-matrix layout, as K-chunks of 16 rows, so a chunk is
-//     one contiguous copy with 16-byte `cp.async`.  bf16 W2/W3 (96 KB at the
-//     slice's widths) stay in shared memory for the whole CTA, loaded once,
-//     beside the activation tiles.  f32 W2/W3 split into hi and lo take 384
-//     KB and cannot stay beside a 128-point tile, so they stream chunk by
-//     chunk through a double buffer from L2 (every CTA reads the same
-//     weights; they stay L2 resident), the next chunk in flight while the
-//     current one computes.  The plan picks residency when it fits.  The
-//     next x tile is always in flight (4-byte `cp.async`) during the current
-//     one.
+//     one contiguous copy with 16-byte `cp.async`.  f32 W2/W3 split into hi
+//     and lo take 384 KB and cannot stay beside a 128-point tile, so they
+//     stream chunk by chunk through a double buffer from L2 (every CTA reads
+//     the same weights; they stay L2 resident), the next chunk in flight
+//     while the current one computes.  The plan picks residency when it
+//     fits.  The next x tile is always in flight (4-byte `cp.async`).
 //   * LayerNorm, ReLU, rounding, max and argmax run on the accumulator
 //     fragments: a row's columns sit in the four lanes of a quad, so the row
 //     statistics take two shuffles; the max over the tile's rows takes three
-//     shuffles plus a per-warp running (max, idx) in shared memory, so h3
-//     never goes to shared memory.
+//     shuffles plus a per-warp running (max, idx) in shared memory.
 //   * The ragged tail is masked: rows past the chunk's end are computed on
 //     zeros and never pooled.
+//
+// Both: operands live in shared memory in the no-swizzle K-major
+// core-matrix layout that the `wgmma` descriptors read (8 rows x 16 bytes
+// per core matrix); widths that are no multiple of 64 are zero-padded in
+// the staged weights, and the padding is left out of the LayerNorm
+// statistics.  The rounding is `_body_rows`': bf16 operands, f32 sums and
+// bias, LN statistics in f32, h1/h2/h3 stored as bf16, the max over the
+// bf16 h3.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -147,6 +185,48 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(1));
 }
 
+// D[64 x 256] (+)= A[64 x 16] * B[16 x 256] (the bf16 persistent body): bf16 operands, f32
+// accumulators, n-tile t's fragment at d[32 t].  `accumulate` 0: D = A * B, the old d is not read.
+__device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// Pin the accumulators at this point of the program: the compiler may not
+// move their reads or writes across it (the wgmma wait binds no register,
+// and a read moved above it makes the compiler serialize the products).
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
 __device__ __forceinline__ float tf32_round(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
@@ -161,29 +241,35 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 // the padded widths, the shared-memory map and the scratch map.
 struct Plan {
   int esz, parts, E;       // element bytes; 2 operand parts (hi, lo) for f32; elements per 16 B
-  int wgs, rows;           // warpgroups per CTA, points per tile (64 * wgs)
+  int wgs, rows;           // warpgroups per CTA, points per tile (64 * wgs; 64 when persistent)
   int kp1, kp2;            // K of layers 2 and 3, padded to 16
   int np2, np3;            // N of layers 2 and 3, padded to 64
   int nc2, nc3;            // streamed chunks per layer
   int chunk2, chunk3;      // bytes per chunk of W2 / W3 (all parts)
+  int kp0, np1, nc1, chunk1;  // layer 1 as a wgmma (persistent only, else nc1 = 0): K, N, chunks, bytes
+  int nt1, nt2, nt3;       // persistent: n-tiles of 64 that hold layer 1-3's columns (its products are 256 wide)
   int act_wg;              // bytes of one operand part of one warpgroup's activations
   int xbytes;              // bytes of one x tile buffer
   int resident;            // 1: all of W2/W3 stays in shared memory; 0: chunks stream through 2 buffers
+  int persistent;          // 1: the bf16 persistent body (below); 0: the chunked body
   // shared-memory byte offsets
-  int o_act, o_w, o_x, o_w1, o_b1, o_prm, o_run_v, o_run_i, smem;
+  int o_act, o_w, o_x, o_w1, o_b1, o_prm, o_run_v, o_run_i, o_a1, o_red, smem;
 };
 
 __host__ __device__ inline size_t weights_bytes(const Plan& p) {
-  return static_cast<size_t>(p.nc2) * p.chunk2 + static_cast<size_t>(p.nc3) * p.chunk3;
+  return static_cast<size_t>(p.nc1) * p.chunk1 + static_cast<size_t>(p.nc2) * p.chunk2 +
+         static_cast<size_t>(p.nc3) * p.chunk3;
 }
 
 // Byte offset of chunk `s` of the per-tile sequence (W2's chunks, then
-// W3's) in the prepared weights, and in shared memory when resident.
+// W3's) in the prepared weights, and in shared memory when resident; W1's
+// chunks, when there are any, come first.
 __host__ __device__ inline int chunk_offset(const Plan& p, int s) {
-  return s < p.nc2 ? s * p.chunk2 : p.nc2 * p.chunk2 + (s - p.nc2) * p.chunk3;
+  return p.nc1 * p.chunk1 + (s < p.nc2 ? s * p.chunk2 : p.nc2 * p.chunk2 + (s - p.nc2) * p.chunk3);
 }
 
 bool make_plan(int bf16, int c_in, int c1, int c2, int c3, int wgs, int resident, Plan* p) {
+  *p = Plan{};
   p->esz = bf16 ? 2 : 4;
   p->parts = bf16 ? 1 : 2;
   p->E = 16 / p->esz;
@@ -213,13 +299,55 @@ bool make_plan(int bf16, int c_in, int c1, int c2, int c3, int wgs, int resident
   return o <= kMaxSmem;
 }
 
-// Two warpgroups (128-point tiles) when they fit in shared memory, else
-// one; for each, the weights resident when they fit (bf16 at the main
-// path's widths), else streamed (f32).
+// The bf16 persistent body: two warpgroups, a 64-point tile each, every
+// weight resident (W1 too, as the B operand of layer 1's wgmma, C_in
+// padded to 16), and a warpgroup's running keys reduced through shared
+// memory where a row's run ends.  Every product is 256 wide (the weights
+// zero-padded): a width fixed at compile time keeps the wgmma issue free
+// of branches, which the compiler would otherwise serialize.
+bool make_persistent_plan(int c_in, int c1, int c2, int c3, Plan* p) {
+  *p = Plan{};
+  p->esz = 2;
+  p->parts = 1;
+  p->E = 8;
+  p->wgs = 2;
+  p->rows = 64;
+  p->resident = 1;
+  p->persistent = 1;
+  p->kp0 = round_up(c_in, kKChunk);
+  p->kp1 = round_up(c1, kKChunk);
+  p->kp2 = round_up(c2, kKChunk);
+  p->nc2 = p->kp1 / kKChunk;
+  p->nc3 = p->kp2 / kKChunk;
+  p->act_wg = 64 * std::max(p->kp1, p->kp2) * 2;
+  p->np1 = p->np2 = p->np3 = kMaxWidth;
+  p->nt1 = round_up(p->kp1, kNTile) / kNTile;
+  p->nt2 = round_up(c2, kNTile) / kNTile;
+  p->nt3 = round_up(c3, kNTile) / kNTile;
+  p->nc1 = p->kp0 / kKChunk;
+  p->chunk1 = p->chunk2 = p->chunk3 = kMaxWidth * kKChunk * 2;
+  p->xbytes = round_up(64 * c_in * 2 + 8, 16);
+  int o = 0;
+  p->o_w = o;   o += static_cast<int>(weights_bytes(*p));
+  p->o_act = o; o += 2 * p->act_wg;
+  p->o_a1 = o;  o += 2 * 64 * p->kp0 * 2;
+  p->o_x = o;   o += 2 * p->xbytes;
+  p->o_b1 = o;  o += p->np1 * 4;
+  p->o_prm = o; o += 3 * (p->np2 + p->np3) * 4;
+  p->o_red = o; o += 2 * 4 * p->np3 * 4;
+  p->smem = o;
+  return p->kp0 <= 64 && o <= kMaxSmem;
+}
+
+// bf16: the persistent body when its weights fit in shared memory.
+// Otherwise (f32, and bf16 too wide for it) the chunked body: two
+// warpgroups (128-point tiles) when they fit in shared memory, else one;
+// for each, the weights resident when they fit, else streamed.
 bool choose_plan(int bf16, int c_in, int c1, int c2, int c3, Plan* p) {
   if (c_in < 1 || c1 < 1 || c2 < 1 || c3 < 1 || c1 > kMaxWidth || c2 > kMaxWidth ||
       c3 > kMaxWidth || c_in > kMaxWidth)
     return false;
+  if (bf16 && make_persistent_plan(c_in, c1, c2, c3, p)) return true;
   for (int wgs = 2; wgs >= 1; --wgs)
     for (int resident = 1; resident >= 0; --resident)
       if (make_plan(bf16, c_in, c1, c2, c3, wgs, resident, p)) return true;
@@ -230,11 +358,14 @@ size_t partials_offset(const Plan& p) { return round_up(static_cast<int>(weights
 struct Params {
   const void* x;  // [B, N, c_in] of T
   int N, c_in, c1, c2, c3, chunks, tiles_per_chunk;
+  // persistent: B rows of T tiles, `per` (batch row, tile) pairs a CTA, a
+  // CTA's run touching at most R rows
+  int B, T, per, R;
   const void* w1;  // [c_in, c1] of T
   const float *b1, *b2, *g2, *be2, *b3, *g3, *be3;
-  const unsigned char* wprep;  // W2 / W3 chunks written by prep_weights_kernel
-  float* part_v;               // [B, chunks, c3]
-  int32_t* part_i;             // [B, chunks, c3]
+  const unsigned char* wprep;  // (W1,) W2, W3 chunks written by prep_weights_kernel
+  float* part_v;               // [slots, c3]: chunked [B, chunks], persistent [CTAs, R, 2]
+  int32_t* part_i;             // [slots, c3]
   Plan plan;
 };
 
@@ -243,22 +374,24 @@ struct Params {
 // core-matrix layout of a wgmma B operand: element (n, kk) at
 // (n/8)*SBO + (kk/E)*128 + (n%8)*16 + (kk%E)*esz, SBO = (16/E)*128.  f32 is
 // split into a TF32 high part and a TF32 remainder (the lo part follows the
-// hi part inside each chunk).  Padding (k >= K or n >= N) is zero.
+// hi part inside each chunk).  Padding (k >= K or n >= N) is zero.  W1
+// comes first when the plan runs layer 1 as a wgmma (nc1 > 0).
 template <typename T>
-__global__ void prep_weights_kernel(const T* __restrict__ w2, const T* __restrict__ w3, Plan p,
-                                    int c1, int c2, int c3, unsigned char* __restrict__ out) {
-  const int n2 = p.np2 * p.kp1, n3 = p.np3 * p.kp2;
+__global__ void prep_weights_kernel(const T* __restrict__ w1, const T* __restrict__ w2,
+                                    const T* __restrict__ w3, Plan p, int c_in, int c1, int c2, int c3,
+                                    unsigned char* __restrict__ out) {
+  const int n1 = p.nc1 > 0 ? p.np1 * p.kp0 : 0, n2 = p.np2 * p.kp1, n3 = p.np3 * p.kp2;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n2 + n3) return;
-  const bool l3 = i >= n2;
-  const int j = l3 ? i - n2 : i;
-  const int np = l3 ? p.np3 : p.np2;
+  if (i >= n1 + n2 + n3) return;
+  const int l = i < n1 ? 1 : i < n1 + n2 ? 2 : 3;
+  const int j = l == 1 ? i : l == 2 ? i - n1 : i - n1 - n2;
+  const int np = l == 1 ? p.np1 : l == 2 ? p.np2 : p.np3;
   const int n = j % np, k = j / np;
-  const int K = l3 ? c2 : c1, N = l3 ? c3 : c2;
-  const T* w = l3 ? w3 : w2;
-  const int chunk_bytes = l3 ? p.chunk3 : p.chunk2;
-  unsigned char* base = out + (l3 ? static_cast<size_t>(p.nc2) * p.chunk2 : 0) +
-                        static_cast<size_t>(k / kKChunk) * chunk_bytes;
+  const int K = l == 1 ? c_in : l == 2 ? c1 : c2, N = l == 1 ? c1 : l == 2 ? c2 : c3;
+  const T* w = l == 1 ? w1 : l == 2 ? w2 : w3;
+  const int chunk_bytes = l == 1 ? p.chunk1 : l == 2 ? p.chunk2 : p.chunk3;
+  const size_t first = l == 1 ? 0 : l == 2 ? static_cast<size_t>(p.nc1) * p.chunk1 : chunk_offset(p, p.nc2);
+  unsigned char* base = out + first + static_cast<size_t>(k / kKChunk) * chunk_bytes;
   const int kk = k % kKChunk;
   const int sbo = (kKChunk / p.E) * 128;
   const int off = (n / 8) * sbo + (kk / p.E) * 128 + (n % 8) * 16 + (kk % p.E) * p.esz;
@@ -293,19 +426,19 @@ __device__ __forceinline__ void load_chunk(const Params& prm, const Smem& sm, in
   for (int o = threadIdx.x * 16; o < bytes; o += blockDim.x * 16) cp_async16(dst + o, src + o);
 }
 
-// Copy the x rows [p0, p0 + valid) of batch row b into x buffer `buf`, in
-// 4-byte words over the 4-byte-aligned span that holds them.  Returns the
-// byte offset of the tile's first element inside the buffer.
+// Copy the x rows [p0, p0 + valid) of batch row b into `dst`, in 4-byte
+// words over the 4-byte-aligned span that holds them, by `n` threads of
+// which this is thread `i`.  Returns the byte offset of the tile's first
+// element inside the buffer.
 template <typename T>
-__device__ __forceinline__ int load_x(const Params& prm, const Smem& sm, int b, int p0, int valid,
-                                      int buf) {
+__device__ __forceinline__ int load_x(const Params& prm, unsigned char* dst, int b, int p0, int valid, int i,
+                                      int n) {
   const size_t start = (static_cast<size_t>(b) * prm.N + p0) * prm.c_in * sizeof(T);
   const size_t end = start + static_cast<size_t>(valid) * prm.c_in * sizeof(T);
   const size_t a0 = start & ~size_t(3);
   const int words = static_cast<int>((end - a0 + 3) / 4);
   const unsigned char* src = static_cast<const unsigned char*>(prm.x) + a0;
-  unsigned char* dst = sm.x + buf * prm.plan.xbytes;
-  for (int i = threadIdx.x; i < words; i += blockDim.x) cp_async4(dst + 4 * i, src + 4 * i);
+  for (; i < words; i += n) cp_async4(dst + 4 * i, src + 4 * i);
   return static_cast<int>(start - a0);
 }
 
@@ -613,7 +746,7 @@ __device__ __forceinline__ void body(const Params& prm) {
   int x_off[2] = {0, 0};
   if (ntiles > 0) {
     load_chunk(prm, sm, 0, 0);
-    x_off[0] = load_x<T>(prm, sm, b, p_begin, min(p.rows, p_end - p_begin), 0);
+    x_off[0] = load_x<T>(prm, sm.x, b, p_begin, min(p.rows, p_end - p_begin), threadIdx.x, blockDim.x);
     cp_async_commit();
   }
   const T* w1 = static_cast<const T*>(prm.w1);
@@ -660,7 +793,8 @@ __device__ __forceinline__ void body(const Params& prm) {
     __syncthreads();  // x tile t and the next weight chunk have landed
     if (t + 1 < ntiles) {
       const int p1 = p0 + p.rows;
-      x_off[(t + 1) & 1] = load_x<T>(prm, sm, b, p1, min(p.rows, p_end - p1), (t + 1) & 1);
+      x_off[(t + 1) & 1] = load_x<T>(prm, sm.x + ((t + 1) & 1) * p.xbytes, b, p1, min(p.rows, p_end - p1),
+                                    threadIdx.x, blockDim.x);
       cp_async_commit();
     }
     layer1<T>(prm, sm, sm.x + (t & 1) * p.xbytes + x_off[t & 1], valid);
@@ -719,6 +853,455 @@ __device__ __forceinline__ void body(const Params& prm) {
   }
 }
 
+// ------------------------------------------------- bf16 persistent body
+constexpr int kOrderBar = 3;       // named barriers 3 + w: warpgroup w's turn at the layer-3 product
+constexpr int kMaxRunTiles = 1024;  // tiles of 64 points a run at most: a partial's index fits 16 bits
+
+__device__ __forceinline__ void order_wait(int w) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(kOrderBar + w), "n"(2 * kWG) : "memory");
+}
+__device__ __forceinline__ void order_pass(int w) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(kOrderBar + w), "n"(2 * kWG) : "memory");
+}
+
+// {relu(hi), relu(lo)} rounded to bf16 and packed as {hi << 16 | lo}: the
+// conversion clamps, which is the same as rounding after the ReLU.
+__device__ __forceinline__ uint32_t bf16x2_relu_bits(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+__device__ __forceinline__ uint32_t bf16x2_max(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("max.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// Copy the x rows of (batch row, tile) pair `gt` into `dst`, by the threads
+// of one warpgroup; returns the tile's offset inside the buffer.
+__device__ __forceinline__ int load_x_wg(const Params& prm, int gt, unsigned char* dst) {
+  const int b = gt / prm.T, p0 = 64 * (gt - b * prm.T);
+  return load_x<__nv_bfloat16>(prm, dst, b, p0, min(64, prm.N - p0), threadIdx.x % kWG, kWG);
+}
+
+// x rows [0, valid) of a tile (c_in bf16 a row at `xt`) -> the warpgroup's
+// layer-1 A operand [64 x kp0] in the K-major core-matrix layout, zero past
+// the valid rows and past c_in.  A thread writes one core-matrix row.
+__device__ __forceinline__ void stage_x(const unsigned char* xt, int valid, int c_in, unsigned char* a1,
+                                        int kp0) {
+  const int groups = kp0 / 8;
+  const uint16_t* xs = reinterpret_cast<const uint16_t*>(xt);
+  for (int item = threadIdx.x % kWG; item < 64 * groups; item += kWG) {
+    const int r8 = item & 7, kg = (item >> 3) % groups, rg = (item >> 3) / groups;
+    const int r = 8 * rg + r8;
+    uint32_t v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = 8 * kg + 2 * e;
+      const uint32_t lo = r < valid && k < c_in ? xs[r * c_in + k] : 0u;
+      const uint32_t hi = r < valid && k + 1 < c_in ? xs[r * c_in + k + 1] : 0u;
+      v[e] = lo | hi << 16;
+    }
+    *reinterpret_cast<uint4*>(a1 + rg * groups * 128 + kg * 128 + r8 * 16) = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// ReLU of the fragments of n-tiles t < nt (columns < kp), rounded to bf16
+// -> the warpgroup's A operand `act` [64 x kp] in the K-major core-matrix
+// layout.
+// A thread's fragment element 4j+h (h < 2) of n-tile t is row A (lane/4 of
+// its warp's 16), column 64t + 8j + 2q + h (q = lane % 4); 4j+2+h is row B.
+__device__ __forceinline__ void store_act(const float (&acc)[128], int nt, unsigned char* act, int kp) {
+  const int lane = threadIdx.x % 32, wq = (threadIdx.x % kWG) / 32, q = lane % 4;
+  const int sbo = (kp / 8) * 128;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    if (t >= nt) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 64 * t + 8 * j + 2 * q;
+      if (col >= kp) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = 16 * wq + lane / 4 + 8 * half;
+        const int off = (r / 8) * sbo + (8 * t + j) * 128 + (r % 8) * 16 + 4 * q;
+        const float* f = acc + 32 * t + 4 * j + 2 * half;
+        *reinterpret_cast<uint32_t*>(act + off) = bf16x2_relu_bits(f[0], f[1]);
+      }
+    }
+  }
+}
+
+// acc + b1 on the fragments (padded columns: zero weights and bias); the
+// ReLU comes with the rounding in store_act.
+__device__ __forceinline__ void add_bias(float (&acc)[128], int nt, const float* bias) {
+  const int q = threadIdx.x % 4;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    if (t >= nt) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 bb = *reinterpret_cast<const float2*>(bias + 64 * t + 8 * j + 2 * q);
+      float* f = acc + 32 * t + 4 * j;
+      f[0] += bb.x;
+      f[1] += bb.y;
+      f[2] += bb.x;
+      f[3] += bb.y;
+    }
+  }
+}
+
+// Sum of squares of the row-A and row-B fragments (already less their means);
+// with PAD the columns >= c are left out.
+template <bool PAD>
+__device__ __forceinline__ void sum_squares(const float (&acc)[128], int nt, int c, float& va, float& vb) {
+  const int q = threadIdx.x % 4;
+  float a0 = 0.f, a1 = 0.f, b0 = 0.f, b1 = 0.f;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    if (t >= nt) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float* f = acc + 32 * t + 4 * j;
+      const int col = 64 * t + 8 * j + 2 * q;
+      const bool ok0 = !PAD || col < c, ok1 = !PAD || col + 1 < c;
+      a0 = ok0 ? fmaf(f[0], f[0], a0) : a0;
+      a1 = ok1 ? fmaf(f[1], f[1], a1) : a1;
+      b0 = ok0 ? fmaf(f[2], f[2], b0) : b0;
+      b1 = ok1 ? fmaf(f[3], f[3], b1) : b1;
+    }
+  }
+  va = a0 + a1;
+  vb = b0 + b1;
+}
+
+// Bias + LayerNorm on the fragments of the thread's rows A and B; the ReLU
+// comes with the rounding to bf16 that follows.  A thread's columns come in
+// adjacent pairs, so it reads the bias as float2 and gamma and beta as one
+// float4, (g, g', b, b') at `gb + 2 * column`.  Padded columns (>= c) hold
+// exactly 0 after the product and the bias, so they add nothing to the
+// sums; they are left out of the squares, and their zero gamma and beta
+// give them 0.
+__device__ __forceinline__ void bias_ln_pairs(float (&acc)[128], int nt, int c, const float* bias,
+                                              const float* gb) {
+  const int q = threadIdx.x % 4;
+  float sa0 = 0.f, sa1 = 0.f, sb0 = 0.f, sb1 = 0.f;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    if (t >= nt) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 bb = *reinterpret_cast<const float2*>(bias + 64 * t + 8 * j + 2 * q);
+      float* f = acc + 32 * t + 4 * j;
+      f[0] += bb.x;
+      f[1] += bb.y;
+      f[2] += bb.x;
+      f[3] += bb.y;
+      sa0 += f[0];
+      sa1 += f[1];
+      sb0 += f[2];
+      sb1 += f[3];
+    }
+  }
+  float sa = sa0 + sa1, sb = sb0 + sb1;
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    sa += __shfl_xor_sync(0xffffffffu, sa, o);
+    sb += __shfl_xor_sync(0xffffffffu, sb, o);
+  }
+  const float inv_c = 1.f / static_cast<float>(c);
+  const float mua = sa * inv_c, mub = sb * inv_c;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    if (t >= nt) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float* f = acc + 32 * t + 4 * j;
+      f[0] -= mua;
+      f[1] -= mua;
+      f[2] -= mub;
+      f[3] -= mub;
+    }
+  }
+  float va, vb;
+  if (c < 64 * nt)
+    sum_squares<true>(acc, nt, c, va, vb);
+  else
+    sum_squares<false>(acc, nt, c, va, vb);
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    va += __shfl_xor_sync(0xffffffffu, va, o);
+    vb += __shfl_xor_sync(0xffffffffu, vb, o);
+  }
+  const float ra = 1.f / sqrtf(va * inv_c + kLnEps), rb = 1.f / sqrtf(vb * inv_c + kLnEps);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    if (t >= nt) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 g = *reinterpret_cast<const float4*>(gb + 2 * (64 * t + 8 * j + 2 * q));
+      float* f = acc + 32 * t + 4 * j;
+      f[0] = f[0] * ra * g.x + g.z;
+      f[1] = f[1] * ra * g.y + g.w;
+      f[2] = f[2] * rb * g.x + g.z;
+      f[3] = f[3] * rb * g.y + g.w;
+    }
+  }
+}
+
+// LN3's fragments -> h3 = their ReLU rounded to bf16 -> the thread's
+// running keys, one a column.  With the argmax a key is (bf16 bits of h3 <<
+// 16) | (0xFFFF - the point's index in the partial): h3 >= 0 (its sign bit
+// cleared, so -0 is +0), so one
+// unsigned max keeps the larger value and, of equal values, the lower
+// index.  Key kk = 16t + 2j + h is column 64t + 8j + 2q + h.  Without it,
+// bf16 pairs (key kk/2 holds columns 64t + 8j + 2q and + 1) under a bf16
+// max.  `ia` / `ib`: 0xFFFF less the partial index of rows A and B; a row
+// past the tile's valid rows gives key 0, which no pooled row loses to.
+template <bool WITH_IDX>
+__device__ __forceinline__ void update_keys(const float (&acc)[128], int nt, uint32_t (&keys)[64], bool okA,
+                                            bool okB, uint32_t ia, uint32_t ib) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    if (t >= nt) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float* f = acc + 32 * t + 4 * j;
+      const uint32_t pa = okA ? bf16x2_relu_bits(f[0], f[1]) & 0x7FFF7FFFu : 0u;
+      const uint32_t pb = okB ? bf16x2_relu_bits(f[2], f[3]) & 0x7FFF7FFFu : 0u;
+      const int kk = 16 * t + 2 * j;
+      if (WITH_IDX) {
+        keys[kk] = __vimax3_u32(keys[kk], __byte_perm(pa, ia, 0x1054), __byte_perm(pb, ib, 0x1054));
+        keys[kk + 1] = __vimax3_u32(keys[kk + 1], __byte_perm(pa, ia, 0x3254), __byte_perm(pb, ib, 0x3254));
+      } else {
+        keys[kk / 2] = bf16x2_max(keys[kk / 2], bf16x2_max(pa, pb));
+      }
+    }
+  }
+}
+
+// One halving exchange with the lane `mask` away: the lower lane keeps keys
+// [0, HALF), the upper [HALF, 2 HALF), each reduced with its partner's, in
+// keys [0, HALF).
+template <bool WITH_IDX, int HALF>
+__device__ __forceinline__ void halve_keys(uint32_t (&keys)[64], bool upper, int mask) {
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const uint32_t send = upper ? keys[i] : keys[i + HALF];
+    const uint32_t keep = upper ? keys[i + HALF] : keys[i];
+    const uint32_t got = __shfl_xor_sync(0xffffffffu, send, mask);
+    keys[i] = WITH_IDX ? max(keep, got) : bf16x2_max(keep, got);
+  }
+}
+
+// A warpgroup's keys of one (CTA, batch row) run -> its partial `pv` / `pi`
+// over the c3 channels, decoded to (max, first point index), the index
+// counted from `seg_start`; (-inf, INT_MAX) where the warpgroup took no tile
+// of the run (`had` false).  The 8 lanes that share q hold the same columns:
+// three halving exchanges (lane bits 4, 3, 2) leave each lane the 8 keys
+// (idx) or 4 pairs (max) of 1/8 of the columns, reduced over those lanes;
+// the 4 warps then meet in shared memory.  Clears the keys.
+template <bool WITH_IDX>
+__device__ __forceinline__ void flush_keys(uint32_t (&keys)[64], bool had, int c3, int np3, uint32_t* red, int w,
+                                           int wq, int seg_start, float* pv, int32_t* pi) {
+  const int tw = threadIdx.x % kWG, lane = threadIdx.x % 32, q = lane % 4;
+  constexpr int kKeys = WITH_IDX ? 64 : 32;
+  if (had) {
+    halve_keys<WITH_IDX, kKeys / 2>(keys, (lane >> 4) & 1, 16);
+    halve_keys<WITH_IDX, kKeys / 4>(keys, (lane >> 3) & 1, 8);
+    halve_keys<WITH_IDX, kKeys / 8>(keys, (lane >> 2) & 1, 4);
+    // this lane's keys: original key (lane bits 4, 3, 2) * kKeys / 8 + i
+    const int base = ((lane >> 2) & 7) * (kKeys / 8);
+#pragma unroll
+    for (int i = 0; i < kKeys / 8; ++i) {
+      const int kk = base + i;
+      if (WITH_IDX) {  // key kk = 16t + 2j + h is column 64t + 8j + 2q + h
+        red[wq * np3 + 64 * (kk / 16) + 8 * ((kk % 16) / 2) + 2 * q + kk % 2] = keys[i];
+      } else {  // pair kk = 8t + j holds columns 64t + 8j + 2q and + 1: their f32 bits, -0 as +0
+        const int col = 64 * (kk / 8) + 8 * (kk % 8) + 2 * q;
+        const uint32_t k = keys[i] & 0x7FFF7FFFu;
+        red[wq * np3 + col] = k << 16;
+        red[wq * np3 + col + 1] = k & 0xFFFF0000u;
+      }
+    }
+  }
+  warpgroup_barrier(1 + w);
+  for (int c = tw; c < c3; c += kWG) {
+    float v = -INFINITY;
+    int32_t i = 0x7fffffff;
+    if (had) {
+      uint32_t k = red[c];
+#pragma unroll
+      for (int r = 1; r < 4; ++r) k = max(k, red[r * np3 + c]);
+      v = __uint_as_float(WITH_IDX ? k & 0xFFFF0000u : k);
+      i = seg_start + 0xFFFF - static_cast<int>(k & 0xFFFFu);
+    }
+    pv[c] = v;
+    if (WITH_IDX) pi[c] = i;
+  }
+  warpgroup_barrier(1 + w);  // red is free again
+#pragma unroll
+  for (int kk = 0; kk < 64; ++kk) keys[kk] = 0u;
+}
+
+// Flush this warpgroup's partials of the rows [row, to) of the CTA's run:
+// `row` with its keys (if it took a tile of it), the others as empty.
+template <bool WITH_IDX>
+__device__ __forceinline__ void flush_rows(const Params& prm, uint32_t (&keys)[64], int row, int to, bool had,
+                                           int run0, int r_first, uint32_t* red, int w, int wq) {
+  for (int r = row; r < to; ++r) {
+    const size_t slot = (static_cast<size_t>(blockIdx.x) * prm.R + (r - r_first)) * 2 + w;
+    const int seg_start = 64 * (max(run0, r * prm.T) - r * prm.T);
+    flush_keys<WITH_IDX>(keys, had && r == row, prm.c3, prm.plan.np3, red, w, wq, seg_start,
+                         prm.part_v + slot * prm.c3, prm.part_i + slot * prm.c3);
+  }
+}
+
+// The bf16 body as one persistent CTA per SM.  CTA `blockIdx.x` takes the
+// run of (batch row, tile) pairs [blockIdx.x * per, + per) of the B * T in
+// row-major order, tiles of 64 points.  Warpgroup w takes the run's pairs
+// w, w + 2, ..., each through: layer 1 (one wgmma k16 step a 16 channels of
+// C_in, on the x tile staged in the wgmma layout) -> bias + ReLU -> h1,
+// layer 2 -> LN + ReLU -> h2, layer 3 -> LN, the keys.  The two warpgroups
+// take turns at the layer-3 product (named barriers), so that one's
+// LayerNorm and keys run while the other's product is in flight; while its
+// own product runs a warpgroup stages its next x tile and asks for the one
+// after.  Where the run leaves a batch row each warpgroup writes its
+// partial for that row.
+template <bool WITH_IDX>
+__device__ __forceinline__ void body_persistent(const Params& prm) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Plan& p = prm.plan;
+  // the warpgroup and the warp inside it, broadcast so that the compiler
+  // sees them warp-uniform (it serializes wgmma behind branches it cannot)
+  const int w = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / kWG), 0);
+  const int wq = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x % kWG / 32), 0);
+  const int lane = threadIdx.x % 32;
+  const int T = prm.T;
+  const int run0 = blockIdx.x * prm.per;
+  const int n_run = min(prm.B * T - run0, prm.per);
+  const int r_first = run0 / T, r_last = (run0 + n_run - 1) / T;
+  unsigned char* wsm = smem + p.o_w;
+  unsigned char* act = smem + p.o_act + w * p.act_wg;
+  unsigned char* a1 = smem + p.o_a1 + w * 64 * p.kp0 * 2;
+  unsigned char* xb = smem + p.o_x + w * p.xbytes;
+  float* b1s = reinterpret_cast<float*>(smem + p.o_b1);
+  float* b2s = reinterpret_cast<float*>(smem + p.o_prm);  // then gamma2 / beta2 interleaved, b3, gamma3 / beta3
+  float *gb2 = b2s + p.np2, *b3s = gb2 + 2 * p.np2, *gb3 = b3s + p.np3;
+  uint32_t* red = reinterpret_cast<uint32_t*>(smem + p.o_red) + w * 4 * p.np3;
+  const uint32_t w_u32 = smem_u32(wsm), act_u32 = smem_u32(act), a1_u32 = smem_u32(a1);
+  auto valid_of = [&](int gt) { return min(64, prm.N - 64 * (gt % T)); };
+
+  // Prologue: every weight, once for the whole run; each warpgroup's first
+  // x tile, staged; the small parameters.
+  const int wbytes = static_cast<int>(weights_bytes(p));
+  for (int o = threadIdx.x * 16; o < wbytes; o += blockDim.x * 16) cp_async16(wsm + o, prm.wprep + o);
+  int x_off = 0;
+  if (w < n_run) x_off = load_x_wg(prm, run0 + w, xb);
+  cp_async_commit();
+  for (int n = threadIdx.x; n < p.np1; n += blockDim.x) b1s[n] = n < prm.c1 ? prm.b1[n] : 0.f;
+  for (int n = threadIdx.x; n < p.np2; n += blockDim.x) {
+    const bool ok = n < prm.c2;
+    const int pair = 2 * (n & ~1) + (n & 1);
+    b2s[n] = ok ? prm.b2[n] : 0.f;
+    gb2[pair] = ok ? prm.g2[n] : 0.f;
+    gb2[pair + 2] = ok ? prm.be2[n] : 0.f;
+  }
+  for (int n = threadIdx.x; n < p.np3; n += blockDim.x) {
+    const bool ok = n < prm.c3;
+    const int pair = 2 * (n & ~1) + (n & 1);
+    b3s[n] = ok ? prm.b3[n] : 0.f;
+    gb3[pair] = ok ? prm.g3[n] : 0.f;
+    gb3[pair + 2] = ok ? prm.be3[n] : 0.f;
+  }
+  cp_async_wait_all();
+  __syncthreads();  // weights, parameters, first x tiles
+  if (w < n_run) stage_x(xb + x_off, valid_of(run0 + w), prm.c_in, a1, p.kp0);
+  fence_proxy_async();
+  __syncthreads();
+  if (w + 2 < n_run) {
+    x_off = load_x_wg(prm, run0 + w + 2, xb);
+    cp_async_commit();
+  }
+
+  uint32_t keys[64];
+#pragma unroll
+  for (int kk = 0; kk < 64; ++kk) keys[kk] = 0u;
+  float acc[128];
+#pragma unroll
+  for (int e = 0; e < 128; ++e) acc[e] = 0.f;
+  const int turns = (n_run + 1) / 2;  // layer-3 turns of each warpgroup: warpgroup 1's last may have no tile
+  const int sbo0 = (p.kp0 / 8) * 128, sbo1 = (p.kp1 / 8) * 128, sbo2 = (p.kp2 / 8) * 128;
+  int turn = 0, row = r_first;
+  bool had = false;
+  if (w == 1) order_pass(0);  // warpgroup 0 takes the first turn
+  for (int k = w; k < n_run; k += 2, ++turn) {
+    const int gt = run0 + k, b = gt / T, t = gt - b * T;
+    const int valid = valid_of(gt);
+    if (b != row) {
+      flush_rows<WITH_IDX>(prm, keys, row, b, had, run0, r_first, red, w, wq);
+      row = b;
+      had = false;
+    }
+
+    fence_acc(acc);
+    wgmma_fence();
+    for (int kc = 0; kc < p.nc1; ++kc)
+      wgmma_bf16_n256(acc, make_desc(a1_u32 + kc * 256, 128, sbo0), make_desc(w_u32 + kc * p.chunk1, 128, 256), kc);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(acc);
+    add_bias(acc, p.nt1, b1s);
+    store_act(acc, p.nt1, act, p.kp1);
+    fence_proxy_async();
+    warpgroup_barrier(1 + w);  // h1 written
+
+    fence_acc(acc);
+    wgmma_fence();
+    for (int kc = 0; kc < p.nc2; ++kc)
+      wgmma_bf16_n256(acc, make_desc(act_u32 + kc * 256, 128, sbo1), make_desc(w_u32 + chunk_offset(p, kc), 128, 256),
+                      kc);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(acc);
+    bias_ln_pairs(acc, p.nt2, prm.c2, b2s, gb2);
+    warpgroup_barrier(1 + w);  // every warp's product has read h1
+    store_act(acc, p.nt2, act, p.kp2);
+    fence_proxy_async();
+    warpgroup_barrier(1 + w);  // h2 written
+
+    order_wait(w);
+    fence_acc(acc);
+    wgmma_fence();
+    for (int kc = 0; kc < p.nc3; ++kc)
+      wgmma_bf16_n256(acc, make_desc(act_u32 + kc * 256, 128, sbo2),
+                      make_desc(w_u32 + chunk_offset(p, p.nc2 + kc), 128, 256), kc);
+    wgmma_commit();
+    if (w == 0 || turn + 1 < turns) order_pass(1 - w);
+    if (k + 2 < n_run) {  // while the product runs: stage the next x tile, ask for the one after
+      cp_async_wait_all();
+      warpgroup_barrier(1 + w);
+      stage_x(xb + x_off, valid_of(gt + 2), prm.c_in, a1, p.kp0);
+      fence_proxy_async();
+      warpgroup_barrier(1 + w);
+      if (k + 4 < n_run) {
+        x_off = load_x_wg(prm, gt + 4, xb);
+        cp_async_commit();
+      }
+    }
+    wgmma_wait_all();
+    fence_acc(acc);
+    bias_ln_pairs(acc, p.nt3, prm.c3, b3s, gb3);
+    const int rA = 16 * wq + lane / 4;
+    const uint32_t ia = 0xFFFFu - static_cast<uint32_t>(64 * (t - (max(run0, b * T) - b * T)) + rA);
+    update_keys<WITH_IDX>(acc, p.nt3, keys, rA < valid, rA + 8 < valid, rA < valid ? ia : 0u,
+                          rA + 8 < valid ? ia - 8 : 0u);
+    had = true;
+  }
+  flush_rows<WITH_IDX>(prm, keys, row, r_last + 1, had, run0, r_first, red, w, wq);
+  if (turn < turns) order_wait(w);  // warpgroup 1's last turn, with no tile
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads, 1) pointnet_body_idx_kernel(__grid_constant__ const Params prm) {
   body<T, true>(prm);
@@ -727,24 +1310,50 @@ template <typename T>
 __global__ void __launch_bounds__(kMaxThreads, 1) pointnet_body_max_kernel(__grid_constant__ const Params prm) {
   body<T, false>(prm);
 }
+// The persistent body, a kernel of its own (T = __nv_bfloat16 only): the
+// compiler decides per function whether it may keep several wgmma in
+// flight, and the chunked body's products would make it serialize these.
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    pointnet_body_idx_kernel_persistent(__grid_constant__ const Params prm) {
+  body_persistent<true>(prm);
+}
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    pointnet_body_max_kernel_persistent(__grid_constant__ const Params prm) {
+  body_persistent<false>(prm);
+}
 
-// Partials [B, chunks, c3] -> pooled (and idx), in chunk order with a
-// strict `>`: ties go to the earlier chunk, i.e. the lower point index.
+// Partials -> pooled (and idx).  Row b's are those of the CTAs whose runs
+// of `per` units (a row has `units`) touch it, in CTA order, W of them a
+// CTA, at slot (CTA * R + the row's place in the CTA's run) * W + w.  The
+// chunked body's [B, chunks] are units = chunks, per = R = W = 1.  Ties go
+// to the lower point index.
 template <bool WITH_IDX>
-__global__ void merge_chunks_kernel(const float* __restrict__ part_v,
-                                    const int32_t* __restrict__ part_i, int B, int chunks, int c3,
+__global__ void merge_chunks_kernel(const float* __restrict__ part_v, const int32_t* __restrict__ part_i,
+                                    int B, int c3, int units, int per, int R, int W,
                                     float* __restrict__ pooled, int32_t* __restrict__ idx) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B * c3) return;
   const int b = i / c3, c = i % c3;
-  const size_t row = static_cast<size_t>(b) * chunks * c3 + c;
-  float best = part_v[row];
-  int best_i = WITH_IDX ? part_i[row] : 0;
-  for (int ch = 1; ch < chunks; ++ch) {
-    const float v = part_v[row + static_cast<size_t>(ch) * c3];
-    if (v > best) {
-      best = v;
-      if (WITH_IDX) best_i = part_i[row + static_cast<size_t>(ch) * c3];
+  const long long u0 = static_cast<long long>(b) * units;
+  const int first = static_cast<int>(u0 / per), last = static_cast<int>((u0 + units - 1) / per);
+  float best = -INFINITY;
+  int best_i = 0x7fffffff;
+  for (int cta = first; cta <= last; ++cta) {
+    const int j = b - static_cast<int>(static_cast<long long>(cta) * per / units);
+    for (int w = 0; w < W; ++w) {
+      const size_t at = ((static_cast<size_t>(cta) * R + j) * W + w) * c3 + c;
+      const float v = part_v[at];
+      if (WITH_IDX) {
+        const int vi = part_i[at];
+        if (v > best || (v == best && vi < best_i)) {
+          best = v;
+          best_i = vi;
+        }
+      } else {
+        best = fmaxf(best, v);
+      }
     }
   }
   pooled[i] = best;
@@ -752,55 +1361,102 @@ __global__ void merge_chunks_kernel(const float* __restrict__ part_v,
 }
 
 template <typename T, bool WITH_IDX>
-int launch_typed(Params prm, const void* w2, const void* w3, int B, unsigned char* scratch,
-                 float* pooled, int32_t* idx, cudaStream_t stream) {
+int launch_typed(Params prm, unsigned char* scratch, float* pooled, int32_t* idx, const void* w1,
+                 const void* w2, const void* w3, cudaStream_t stream) {
   const Plan& p = prm.plan;
-  const int n_prep = p.np2 * p.kp1 + p.np3 * p.kp2;
+  const int n_prep = (p.nc1 > 0 ? p.np1 * p.kp0 : 0) + p.np2 * p.kp1 + p.np3 * p.kp2;
   prep_weights_kernel<T><<<(n_prep + 255) / 256, 256, 0, stream>>>(
-      static_cast<const T*>(w2), static_cast<const T*>(w3), p, prm.c1, prm.c2, prm.c3, scratch);
+      static_cast<const T*>(w1), static_cast<const T*>(w2), static_cast<const T*>(w3), p, prm.c_in, prm.c1,
+      prm.c2, prm.c3, scratch);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   auto kernel = WITH_IDX ? pointnet_body_idx_kernel<T> : pointnet_body_max_kernel<T>;
+  if constexpr (sizeof(T) == 2) {
+    if (p.persistent)
+      kernel = WITH_IDX ? pointnet_body_idx_kernel_persistent<T> : pointnet_body_max_kernel_persistent<T>;
+  }
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B * prm.chunks, p.wgs * kWG, p.smem, stream>>>(prm);
+  kernel<<<p.persistent ? prm.chunks : prm.B * prm.chunks, p.wgs * kWG, p.smem, stream>>>(prm);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const int n = B * prm.c3;
+  const int n = prm.B * prm.c3;
   merge_chunks_kernel<WITH_IDX><<<(n + 255) / 256, 256, 0, stream>>>(
-      prm.part_v, prm.part_i, B, prm.chunks, prm.c3, pooled, idx);
+      prm.part_v, prm.part_i, prm.B, prm.c3, p.persistent ? prm.T : prm.chunks, p.persistent ? prm.per : 1,
+      p.persistent ? prm.R : 1, p.persistent ? 2 : 1, pooled, idx);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch's split, checked: the chunked body's `chunks` chunks a row, or
+// the persistent body's `chunks` CTAs of `per` tiles, each with work and
+// none over kMaxRunTiles.  Fills the split's part of `prm`; returns the
+// partial slots (of c3 channels), or -1.
+long long set_split(const Plan& plan, int B, int N, int chunks, int per, Params* prm) {
+  if (B < 1 || N < 1 || chunks < 1) return -1;
+  prm->B = B;
+  prm->chunks = chunks;
+  if (!plan.persistent) {
+    const int n_tiles = (N + plan.rows - 1) / plan.rows;
+    prm->tiles_per_chunk = (n_tiles + chunks - 1) / chunks;
+    return static_cast<long long>(B) * chunks;
+  }
+  const int T = (N + 63) / 64;
+  const long long total = static_cast<long long>(B) * T;
+  if (per < 1 || per > kMaxRunTiles || total > 0x7fffffff || static_cast<long long>(chunks) * per < total ||
+      static_cast<long long>(chunks - 1) * per >= total)
+    return -1;
+  prm->T = T;
+  prm->per = per;
+  prm->R = (per + T - 2) / T + 1;
+  return static_cast<long long>(chunks) * prm->R * 2;
 }
 
 template <bool WITH_IDX>
 int launch(int bf16, const void* x, int B, int N, int c_in, const void* w1, const float* b1,
            int c1, const void* w2, const float* b2, const float* g2, const float* be2, int c2,
            const void* w3, const float* b3, const float* g3, const float* be3, int c3, int chunks,
-           void* scratch, float* pooled, int32_t* idx, void* stream) {
+           int per, void* scratch, float* pooled, int32_t* idx, void* stream) {
   Plan plan;
-  if (B < 1 || N < 1 || chunks < 1 || !choose_plan(bf16, c_in, c1, c2, c3, &plan)) return -1;
-  const int n_tiles = (N + plan.rows - 1) / plan.rows;
-  const int tpc = (n_tiles + chunks - 1) / chunks;
+  if (!choose_plan(bf16, c_in, c1, c2, c3, &plan)) return -1;
+  Params prm{};
+  const long long slots = set_split(plan, B, N, chunks, per, &prm);
+  if (slots < 0) return -1;
   unsigned char* s = static_cast<unsigned char*>(scratch);
-  float* part_v = reinterpret_cast<float*>(s + partials_offset(plan));
-  int32_t* part_i = reinterpret_cast<int32_t*>(part_v + static_cast<size_t>(B) * chunks * c3);
-  const Params prm{x, N, c_in, c1, c2, c3, chunks, tpc, w1, b1, b2, g2, be2, b3, g3, be3,
-                   s, part_v, part_i, plan};
+  prm.x = x;
+  prm.N = N;
+  prm.c_in = c_in;
+  prm.c1 = c1;
+  prm.c2 = c2;
+  prm.c3 = c3;
+  prm.w1 = w1;
+  prm.b1 = b1;
+  prm.b2 = b2;
+  prm.g2 = g2;
+  prm.be2 = be2;
+  prm.b3 = b3;
+  prm.g3 = g3;
+  prm.be3 = be3;
+  prm.wprep = s;
+  prm.part_v = reinterpret_cast<float*>(s + partials_offset(plan));
+  prm.part_i = reinterpret_cast<int32_t*>(prm.part_v + slots * c3);
+  prm.plan = plan;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_typed<__nv_bfloat16, WITH_IDX>(prm, w2, w3, B, s, pooled, idx, st)
-              : launch_typed<float, WITH_IDX>(prm, w2, w3, B, s, pooled, idx, st);
+  return bf16 ? launch_typed<__nv_bfloat16, WITH_IDX>(prm, s, pooled, idx, w1, w2, w3, st)
+              : launch_typed<float, WITH_IDX>(prm, s, pooled, idx, w1, w2, w3, st);
 }
 
 }  // namespace
 
 // C entry points, bound with ctypes.  `bf16` selects the compute type of x
 // and W1..W3 (0: float, 1: __nv_bfloat16); biases and LayerNorm parameters
-// are always f32.  `chunks` is the number of point chunks per batch row and
-// `scratch` a device buffer of pointnet_fused_scratch_bytes(...) bytes.  The
-// launchers return -1 for a shape the kernel does not take, else the
-// cudaError_t of the launches (0 on success).
+// are always f32.  The split: for the chunked body `chunks` point chunks a
+// batch row (`per` unused); for the persistent body (bf16 where its weights
+// fit) `chunks` CTAs, each a run of `per` (batch row, tile) pairs, at most
+// 1024.  `scratch` is a device buffer of pointnet_fused_scratch_bytes(...)
+// bytes.  The launchers return -1 for a shape or split the kernel does not
+// take, else the cudaError_t of the launches (0 on success).
 
 // Points per tile for these widths, or 0 if the kernel does not take them.
 extern "C" int pointnet_fused_tile_rows(int bf16, int c_in, int c1, int c2, int c3) {
@@ -808,31 +1464,39 @@ extern "C" int pointnet_fused_tile_rows(int bf16, int c_in, int c1, int c2, int 
   return choose_plan(bf16, c_in, c1, c2, c3, &p) ? p.rows : 0;
 }
 
-extern "C" long long pointnet_fused_scratch_bytes(int bf16, int c_in, int c1, int c2, int c3, int B,
-                                                  int chunks) {
+// 1 where these widths run the persistent body, else 0.
+extern "C" int pointnet_fused_persistent(int bf16, int c_in, int c1, int c2, int c3) {
   Plan p;
+  return choose_plan(bf16, c_in, c1, c2, c3, &p) ? p.persistent : 0;
+}
+
+extern "C" long long pointnet_fused_scratch_bytes(int bf16, int c_in, int c1, int c2, int c3, int B, int N,
+                                                  int chunks, int per) {
+  Plan p;
+  Params prm{};
   if (!choose_plan(bf16, c_in, c1, c2, c3, &p)) return -1;
-  return static_cast<long long>(partials_offset(p)) + 8ll * B * chunks * c3;
+  const long long slots = set_split(p, B, N, chunks, per, &prm);
+  return slots < 0 ? -1 : static_cast<long long>(partials_offset(p)) + 8ll * slots * c3;
 }
 
 extern "C" int pointnet_fused_fwd_idx(int bf16, const void* x, int B, int N, int c_in,
                                       const void* w1, const float* b1, int c1, const void* w2,
                                       const float* b2, const float* g2, const float* be2, int c2,
                                       const void* w3, const float* b3, const float* g3,
-                                      const float* be3, int c3, int chunks, void* scratch,
+                                      const float* be3, int c3, int chunks, int per, void* scratch,
                                       float* pooled, int32_t* idx, void* stream) {
   return launch<true>(bf16, x, B, N, c_in, w1, b1, c1, w2, b2, g2, be2, c2, w3, b3, g3, be3, c3,
-                      chunks, scratch, pooled, idx, stream);
+                      chunks, per, scratch, pooled, idx, stream);
 }
 
 extern "C" int pointnet_fused_fwd_max(int bf16, const void* x, int B, int N, int c_in,
                                       const void* w1, const float* b1, int c1, const void* w2,
                                       const float* b2, const float* g2, const float* be2, int c2,
                                       const void* w3, const float* b3, const float* g3,
-                                      const float* be3, int c3, int chunks, void* scratch,
+                                      const float* be3, int c3, int chunks, int per, void* scratch,
                                       float* pooled, void* stream) {
   return launch<false>(bf16, x, B, N, c_in, w1, b1, c1, w2, b2, g2, be2, c2, w3, b3, g3, be3, c3,
-                       chunks, scratch, pooled, nullptr, stream);
+                       chunks, per, scratch, pooled, nullptr, stream);
 }
 
 extern "C" const char* pointnet_fused_error_string(int err) {

@@ -18,10 +18,13 @@ Dispatch has no fallback.  A CPU tensor runs the plain PyTorch version
 ``csrc/pointnet_fused.cu`` (built with nvcc at first use) or raises.  The
 plain version is the kernel's oracle in the tests on the card.
 
-The kernel splits the point axis into chunks (``choose_chunks``), one CTA
-per (batch row, chunk), and merges the chunks' partial (max, first index)
-in a second launch; the wrapper allocates the scratch that holds the
-prepared weights and the partials.
+In bf16 (where its weights fit in shared memory) the kernel is persistent:
+``choose_runs`` cuts the (batch row, 64-point tile) pairs into one run of
+consecutive pairs per CTA.  Otherwise (f32, and bf16 too wide for it) it
+splits the point axis into chunks (``choose_chunks``), one CTA per (batch
+row, chunk).  A second launch merges the partial (max, first index) of
+each row; the wrapper allocates the scratch that holds the prepared
+weights and the partials.
 
 Backward: the max-pool routes each output channel's gradient through ONE
 winner point (the first-index argmax, torch ``max`` semantics), so
@@ -58,9 +61,15 @@ launch_counts: Dict[str, int] = {"pointnet_fused_fwd_idx": 0, "pointnet_fused_fw
 # its total to the forward launches they find in a trace.
 bwd_launch_counts: Dict[str, int] = {"pointnet_fused_bwd": 0}
 
+# The forward launches again, by the body design they ran: the bf16
+# persistent body, the chunked body in bf16 (widths whose weights do not
+# fit the persistent one) and the f32 3xTF32 body.  Apart from
+# ``launch_counts``, whose total its readers hold to the launches in a trace.
+plan_counts: Dict[str, int] = {"bf16_persistent": 0, "bf16_chunked": 0, "f32_3xtf32": 0}
+
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, bwd_launch_counts):
+    for counts in (launch_counts, bwd_launch_counts, plan_counts):
         for key in counts:
             counts[key] = 0
 
@@ -120,14 +129,16 @@ def load_library(verbose: bool = False) -> ctypes.CDLL:
     lib = build.load_library(_LIB_NAME, verbose=verbose)
     if not getattr(lib, "_pcrl_bound", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        common = [ci, vp, ci, ci, ci, vp, vp, ci, vp, vp, vp, vp, ci, vp, vp, vp, vp, ci, ci, vp, vp]
+        common = [ci, vp, ci, ci, ci, vp, vp, ci, vp, vp, vp, vp, ci, vp, vp, vp, vp, ci, ci, ci, vp, vp]
         lib.pointnet_fused_fwd_idx.argtypes = common + [vp, vp]
         lib.pointnet_fused_fwd_idx.restype = ci
         lib.pointnet_fused_fwd_max.argtypes = common + [vp]
         lib.pointnet_fused_fwd_max.restype = ci
         lib.pointnet_fused_tile_rows.argtypes = [ci] * 5
         lib.pointnet_fused_tile_rows.restype = ci
-        lib.pointnet_fused_scratch_bytes.argtypes = [ci] * 7
+        lib.pointnet_fused_persistent.argtypes = [ci] * 5
+        lib.pointnet_fused_persistent.restype = ci
+        lib.pointnet_fused_scratch_bytes.argtypes = [ci] * 9
         lib.pointnet_fused_scratch_bytes.restype = ctypes.c_longlong
         lib.pointnet_fused_bwd.argtypes = [ci, vp, ci, ci, ci, vp, vp, vp, vp, ci, vp, vp, vp, vp, ci,
                                            vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp]
@@ -199,6 +210,22 @@ def choose_chunks(B: int, N: int, tile_rows: int, n_sm: int) -> int:
     return best
 
 
+# Points of a partial of the persistent body at most: its keys hold a
+# point's index inside the partial in 16 bits.
+MAX_RUN_POINTS = 65536
+
+
+def choose_runs(B: int, N: int, tile_rows: int, n_sm: int) -> Tuple[int, int]:
+    """(CTAs, tiles per CTA) of the persistent body: the B * ceil(N /
+    tile_rows) (batch row, tile) pairs in row-major order, cut into runs of
+    ``per`` consecutive pairs, one run a CTA.  ``per`` is the least that
+    keeps the CTAs within one wave of ``n_sm`` (one CTA an SM), and no more
+    tiles than MAX_RUN_POINTS hold.  The kernel runs this split as given."""
+    total = B * -(-N // tile_rows)
+    per = min(-(-total // n_sm), MAX_RUN_POINTS // tile_rows)
+    return -(-total // per), per
+
+
 def choose_bwd_ctas(rows: int, tile_rows: int, n_sm: int) -> Tuple[int, int]:
     """(CTAs, tiles per CTA) of the winner backward: the least number of
     tiles per CTA when the tiles of ``rows`` winner rows are shared over
@@ -230,8 +257,13 @@ def _forward_kernel(x, params, compute_dtype, with_idx: bool):
         raise ValueError(f"unsupported shape: C_in {c_in}, widths {c1}/{c2}/{c3} in {dtype} "
                          "(the kernel takes widths 1..256 whose tiles fit in shared memory)")
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    chunks = choose_chunks(B, N, tile_rows, _sm_count(index))
-    scratch = torch.empty(lib.pointnet_fused_scratch_bytes(bf16, c_in, c1, c2, c3, B, chunks),
+    if lib.pointnet_fused_persistent(bf16, c_in, c1, c2, c3):
+        plan = "bf16_persistent"
+        chunks, per = choose_runs(B, N, tile_rows, _sm_count(index))
+    else:
+        plan = "bf16_chunked" if bf16 else "f32_3xtf32"
+        chunks, per = choose_chunks(B, N, tile_rows, _sm_count(index)), 0
+    scratch = torch.empty(lib.pointnet_fused_scratch_bytes(bf16, c_in, c1, c2, c3, B, N, chunks, per),
                           device=dev, dtype=torch.uint8)
     pooled = torch.empty((B, c3), device=dev, dtype=f32)
     idx = torch.empty((B, c3), device=dev, dtype=torch.int32) if with_idx else None
@@ -240,7 +272,7 @@ def _forward_kernel(x, params, compute_dtype, with_idx: bool):
         args = [bf16, x.data_ptr(), B, N, c_in,
                 w1.data_ptr(), b1.data_ptr(), c1, w2.data_ptr(), b2.data_ptr(), g2.data_ptr(),
                 be2.data_ptr(), c2, w3.data_ptr(), b3.data_ptr(), g3.data_ptr(), be3.data_ptr(), c3,
-                chunks, scratch.data_ptr(), pooled.data_ptr()]
+                chunks, per, scratch.data_ptr(), pooled.data_ptr()]
         if with_idx:
             name = "pointnet_fused_fwd_idx"
             err = lib.pointnet_fused_fwd_idx(*args, idx.data_ptr(), stream)
@@ -251,6 +283,7 @@ def _forward_kernel(x, params, compute_dtype, with_idx: bool):
         msg = lib.pointnet_fused_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: {msg} (cudaError {err})")
     launch_counts[name] += 1
+    plan_counts[plan] += 1
     return pooled, idx
 
 

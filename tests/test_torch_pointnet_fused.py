@@ -151,6 +151,23 @@ def test_cpu_tensors_never_launch_the_kernel():
     _torch_forward(x, params, None)
     _torch_forward(x, params, None, with_idx=False)
     assert tpf.launch_counts == {"pointnet_fused_fwd_idx": 0, "pointnet_fused_fwd_max": 0}
+    assert set(tpf.plan_counts.values()) == {0}
+
+
+def test_plan_counts_stay_apart_from_launch_counts():
+    """The forward launches by body design are a dict of their own: the
+    roofline reader sums every value of ``launch_counts``, so the designs'
+    counts must not be inside it; a capture takes them back and a replay
+    adds them like the other counters, and a reset clears them."""
+    from pointcloud_rl_torch.algorithms import graphs
+
+    assert tpf.plan_counts is not tpf.launch_counts
+    assert set(tpf.plan_counts) == {"bf16_persistent", "bf16_chunked", "f32_3xtf32"}
+    assert not set(tpf.plan_counts) & (set(tpf.launch_counts) | set(tpf.bwd_launch_counts))
+    assert any(c is tpf.plan_counts for c in graphs._LAUNCH_COUNTERS)
+    tpf.plan_counts["bf16_persistent"] += 3
+    tpf.reset_launch_counts()
+    assert set(tpf.plan_counts.values()) == {0}
 
 
 def test_library_path_changes_with_the_source(tmp_path, monkeypatch):
@@ -178,12 +195,55 @@ def test_chunk_count_fills_the_card(B, N, tile, chunks):
     assert (got - 1) * per_chunk < n_tiles <= got * per_chunk
 
 
+def _runs(B, N, tile, ctas, per):
+    """Each CTA's run as a list of (batch row, tile) pairs, in run order."""
+    T = -(-N // tile)
+    return [[divmod(g, T) for g in range(c * per, min(B * T, (c + 1) * per))] for c in range(ctas)]
+
+
+@pytest.mark.parametrize("B, N", [(512, 1536), (256, 1536), (128, 1536), (16, 1536), (512, 1200), (4, 1200),
+                                  (2, 1200), (100, 1536), (1, 1), (3, 200000), (1, 70000)])
+@pytest.mark.parametrize("n_sm", [132, 7])
+def test_persistent_runs_cover_every_tile_once(B, N, n_sm):
+    """The persistent body's runs take every (batch row, tile) pair once, a
+    row's tiles in point order within a run, every CTA some; a run spans at
+    most MAX_RUN_POINTS points of a row (the keys' 16-bit index), and the
+    CTAs stay within one wave unless that cap forces more."""
+    tile = 64
+    ctas, per = tpf.choose_runs(B, N, tile, n_sm)
+    runs = _runs(B, N, tile, ctas, per)
+    flat = [pair for run in runs for pair in run]
+    T = -(-N // tile)
+    assert flat == [(b, t) for b in range(B) for t in range(T)]
+    assert all(runs) and per * tile <= tpf.MAX_RUN_POINTS
+    for run in runs:
+        for row in {b for b, _ in run}:
+            tiles = [t for b, t in run if b == row]
+            assert tiles == list(range(tiles[0], tiles[0] + len(tiles)))
+            assert (tiles[-1] - tiles[0] + 1) * tile <= tpf.MAX_RUN_POINTS
+    assert ctas <= n_sm or per == tpf.MAX_RUN_POINTS // tile
+
+
+@pytest.mark.parametrize("B, N", [(2, 1200), (4, 1200), (16, 1536), (2, 1536), (4, 1536)])
+def test_persistent_runs_spread_act_shapes_at_least_as_wide(B, N):
+    """At the act shapes the persistent body spreads a few rows over at
+    least as many CTAs as the chunked split of 128-point tiles did."""
+    ctas, per = tpf.choose_runs(B, N, 64, 132)
+    assert ctas >= B * tpf.choose_chunks(B, N, 128, 132)
+    assert ctas <= 132
+
+
 # ------------------------------------------------------------ on the card
 # (name, B, N, C_in, widths): the main path's shapes (the update's encodes,
-# the act encode at 4 env workers), then edges: a single chunk, one point,
-# ragged tails, widths that are no multiple of 16 or 64, and widths narrow
-# enough that f32 weights stay in shared memory (bf16 weights always do here).
+# a data-parallel rank's, the act encodes), then edges: a single chunk, one
+# point, ragged tails, widths that are no multiple of 16 or 64, widths
+# narrow enough that f32 weights stay in shared memory, a wide C_in, and
+# more points than a 16-bit index holds.
 GPU_SHAPES = [
+    ("walker_drq", 512, 1536, 9, (64, 128, 256)),  # the walker update's encodes (256 rows x 2 copies)
+    ("walker_rank", 128, 1536, 9, (64, 128, 256)),  # a rank's of 4
+    ("walker_act", 16, 1536, 9, (64, 128, 256)),  # the walker act at 16 envs
+    ("drq", 512, 1200, 8, (128, 128, 256)),  # DrQ at 256 rows x 2 copies
     ("slice", 8, 1200, 8, (128, 128, 256)),
     ("act", 4, 1200, 8, (128, 128, 256)),
     ("walker", 8, 1536, 9, (64, 128, 256)),
@@ -192,6 +252,8 @@ GPU_SHAPES = [
     ("n1201", 2, 1201, 8, (128, 128, 256)),
     ("odd_widths", 3, 300, 8, (40, 72, 200)),
     ("narrow", 2, 100, 8, (32, 64, 128)),  # f32 weights resident in shared memory too
+    ("c_in40", 3, 300, 40, (64, 128, 256)),  # bf16: three k16 steps of layer 1
+    ("n70000", 2, 70000, 9, (64, 128, 256)),  # winner indices past 16 bits, partials that start past them
 ]
 
 
@@ -225,6 +287,18 @@ def test_kernel_matches_plain_on_gpu(dtype, name, B, N, c_in, widths):
     assert torch.equal(again, got) and torch.equal(idx_again, idx)
 
 
+def _points_per_partial(dtype, B, N, c_in, widths):
+    """Points of a row that one partial covers at most, in the split the
+    wrapper takes for this dtype and these widths."""
+    lib = tpf.load_library()
+    bf16 = int(dtype == "bfloat16")
+    tile = lib.pointnet_fused_tile_rows(bf16, c_in, *widths)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    if lib.pointnet_fused_persistent(bf16, c_in, *widths):
+        return min(tpf.choose_runs(B, N, tile, n_sm)[1] * tile, N)
+    return -(-(-(-N // tile)) // tpf.choose_chunks(B, N, tile, n_sm)) * tile
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_copies_in_different_chunks_take_the_first_index_on_gpu(dtype):
@@ -233,16 +307,81 @@ def test_copies_in_different_chunks_take_the_first_index_on_gpu(dtype):
     tx, tp = _gpu_inputs(6, 4, 400, 8, (128, 128, 256))
     tx = torch.cat([tx, tx, tx], dim=1)  # [4, 1200, 8]
     tdt = None if dtype == "float32" else torch.bfloat16
-    lib = tpf.load_library()
-    tile = lib.pointnet_fused_tile_rows(int(tdt is not None), 8, 128, 128, 256)
-    chunks = tpf.choose_chunks(4, 1200, tile, torch.cuda.get_device_properties(0).multi_processor_count)
-    per_chunk = -(-(-(-1200 // tile)) // chunks) * tile
-    assert per_chunk <= 400, "the copies must fall in different chunks"
+    assert _points_per_partial(dtype, 4, 1200, 8, (128, 128, 256)) <= 400, \
+        "the copies must fall in different chunks"
     _, idx = tpf._forward_kernel(tx, tp, tdt, with_idx=True)
     _, want = tpf._forward_plain(tx, tp, tdt, with_idx=True)
     torch.cuda.synchronize()
     assert int(idx.max()) < 400
     assert torch.equal(idx, want)
+
+
+@pytest.mark.gpu
+def test_copies_across_runs_and_rows_take_the_first_index_on_gpu():
+    """bf16 walker widths at 25 rows of three copies of 512 points: the
+    copies lie in different tiles, in both warpgroups' tiles and in
+    different CTAs' runs, and runs cross row boundaries.  Every winner is
+    the first copy's (the plain first-index argmax).  Channels whose gamma
+    and beta are 0 read 0 (or -0) at every point: they pool to 0 at index 0."""
+    B, N, widths = 25, 1536, (64, 128, 256)
+    tx, tp = _gpu_inputs(13, B, 512, 9, widths)
+    tx = torch.cat([tx, tx, tx], dim=1)
+    tp = list(tp)
+    flat = torch.arange(0, 256, 5, device="cuda")
+    tp[8] = tp[8].index_fill(0, flat, 0.0)  # gamma3
+    tp[9] = tp[9].index_fill(0, flat, 0.0)  # beta3
+    tp = tuple(tp)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    ctas, per = tpf.choose_runs(B, N, 64, n_sm)
+    assert 24 % per != 0 and per < 8, "runs must cross rows and split the copies"
+    pf_before = dict(tpf.plan_counts)
+    for with_idx in (True, False):
+        got, idx = tpf._forward_kernel(tx, tp, torch.bfloat16, with_idx=with_idx)
+        want, want_idx = tpf._forward_plain(tx, tp, torch.bfloat16, with_idx=True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=3e-2)
+        assert torch.equal(got[:, flat], torch.zeros_like(got[:, flat]))
+        if with_idx:
+            assert int(idx.max()) < 512
+            assert torch.equal(idx, want_idx)
+            assert not idx[:, flat].any()
+    assert tpf.plan_counts["bf16_persistent"] == pf_before["bf16_persistent"] + 2
+
+
+@pytest.mark.gpu
+def test_plan_counts_follow_the_body_design_on_gpu():
+    """bf16 at the walker's widths takes the persistent body, bf16 too wide
+    for it the chunked one, f32 the 3xTF32 body; each launch adds one to
+    its design and one to its entry point."""
+    cases = [(torch.bfloat16, (64, 128, 256), "bf16_persistent"), (None, (64, 128, 256), "f32_3xtf32"),
+             (torch.bfloat16, (256, 256, 256), "bf16_chunked")]
+    for tdt, widths, plan in cases:
+        tx, tp = _gpu_inputs(14, 4, 300, 9, widths)
+        before, launches = dict(tpf.plan_counts), sum(tpf.launch_counts.values())
+        tpf._forward_kernel(tx, tp, tdt, with_idx=True)
+        tpf._forward_kernel(tx, tp, tdt, with_idx=False)
+        added = {k: v - before[k] for k, v in tpf.plan_counts.items()}
+        assert added == {k: 2 if k == plan else 0 for k in added}, (plan, added)
+        assert sum(tpf.launch_counts.values()) == launches + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_idx", [True, False], ids=["idx", "max"])
+def test_persistent_body_replays_bitwise_in_a_cuda_graph_on_gpu(with_idx):
+    """The bf16 body at the walker update's shape captured in a CUDA graph:
+    each replay gives the eager call's pooled values and indices, bitwise."""
+    tx, tp = _gpu_inputs(15, 512, 1536, 9, (64, 128, 256))
+    eager, eager_idx = tpf._forward_kernel(tx, tp, torch.bfloat16, with_idx=with_idx)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        got, got_idx = tpf._forward_kernel(tx, tp, torch.bfloat16, with_idx=with_idx)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, eager)
+        assert not with_idx or torch.equal(got_idx, eager_idx)
 
 
 def test_launch_counts_keep_the_forward_keys_alone():

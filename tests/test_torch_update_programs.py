@@ -610,6 +610,25 @@ def test_a_walker_shaped_update_replays_its_backward_launches_on_gpu():
     assert prog["launches"]["pointnet_fused_bwd"] == added[0] and prog["replays"] == 2
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16, plan", [(True, "bf16_persistent"), (False, "f32_3xtf32")], ids=["bf16", "f32"])
+def test_a_walker_shaped_update_counts_its_body_design_on_gpu(bf16, plan):
+    """DrQ scans at the walker's body widths: every forward launch of the
+    eager run, the capture's replay and a later replay adds one to its
+    body design in ``plan_counts`` (bf16: the persistent body; f32: the
+    3xTF32 body), as many as it adds to ``launch_counts``."""
+    from pointcloud_rl_torch.ops import pointnet_fused as pf
+
+    _card()
+    graphed, _, mem, _ = _card_agents("drq", bf16, extra={_V + "mlp_spec": [64, 128, 256]})
+    for rnd in range(3):  # the eager run, the capture and a replay, a replay
+        plans, launches = dict(pf.plan_counts), dict(pf.launch_counts)
+        graphed.update_parameters_scan(mem, 4)
+        added = {k: v - plans[k] for k, v in pf.plan_counts.items()}
+        n = sum(v - launches[k] for k, v in pf.launch_counts.items())
+        assert n > 0 and added == {k: n if k == plan else 0 for k in added}, (rnd, added, n)
+
+
 def test_the_launch_counters_hold_the_conv_calls():
     """The 3D convolution calls are among the counters a capture takes back
     and a replay adds again, beside the fused PointNet kernels' launches,
