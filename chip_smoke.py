@@ -296,6 +296,8 @@ import time
 
 import numpy as np
 
+from pointcloud_rl_torch.utils.trace import reset_counters
+
 REPO = osp.dirname(osp.abspath(__file__))
 SLICE_CONFIG = "configs/mfrl/sac/synthetic/pn_fake_manipulation.py"
 DRQ_CONFIG = "configs/mfrl/drq/synthetic/pn_jitter_fake_manipulation.py"
@@ -806,11 +808,6 @@ def phase_train(work: str, name: str, config: str, opts, prefix: str, pointnet: 
     if not summary["device"].startswith("cuda"):
         fail(f"{name} ran on {summary['device']}")
     check_launches(name, "training", run_launches(summary), pointnet, TRAIN_KERNELS)
-    # every forward launch took the body design of its dtype (the runs' widths fit the persistent body)
-    design = "bf16_persistent" if "agent_cfg.bf16=True" in opts else "f32_3xtf32"
-    n_fwd = sum(summary["launches"].values())
-    if summary["plans"] != {k: (n_fwd if k == design else 0) for k in summary["plans"]}:
-        fail(f"{name}: forward launches by body design {summary['plans']}, expected all {n_fwd} on {design}")
     for ckpt in checkpoints(total):
         if not osp.isfile(osp.join(wd, "models", ckpt)):
             fail(f"{name}: checkpoint {ckpt} missing")
@@ -1651,7 +1648,7 @@ def phase_dmc(pf, card: str) -> dict:
               f"{agent_cfg['actor_cfg']['nn_cfg']['visual_nn_cfg']['out_channels']}), batch {agent.batch_size}; "
               f"obs transfer {spec}; {rollout.num_envs} stand-in envs behind ServerObsVectorEnv(num_frames="
               f"{server.num_frames}) on {server.device}; set-up {time.monotonic() - t0:.1f} s", flush=True)
-        pf.reset_launch_counts()
+        reset_counters()
         t_warm = time.monotonic()
         rollout.forward_with_policy(None, warm, replay)
         torch.cuda.synchronize()
@@ -1991,7 +1988,7 @@ def dp_worker(mode: str, out_path: str) -> None:
 
     start = (train_state_on_host(agent), index_state(replay))
     pf._forward_kernel = counted
-    pf.reset_launch_counts()
+    reset_counters()
     metrics, steps = take_updates(agent, replay, rank)
     launches = dict(pf.launch_counts)
     pf._forward_kernel = launch
@@ -2114,7 +2111,7 @@ def interleave_worker(mode: str, out_path: str) -> None:
     agent.update_parameters_scan, rollout.forward_with_policy = recorded_scan, timed_collect
     work = osp.join(osp.dirname(out_path), f"interleave_{mode}_{rank}")
     try:
-        pf.reset_launch_counts()
+        reset_counters()
         out = train_rl(agent, rollout, None, replay, work_dir=work, total_steps=warm + INTERLEAVE_CYCLES * n_steps,
                        warm_steps=warm, n_steps=n_steps, n_updates=n_updates, n_log=10 ** 9, n_eval=-1,
                        n_checkpoint=-1)
@@ -2931,7 +2928,7 @@ def phase_replay_io(pf, card: str) -> dict:
     work = tempfile.mkdtemp(prefix="chip_smoke_replay_io_", dir=osp.join(REPO, "build"))
     log = _MetricLog()
     try:
-        pf.reset_launch_counts()
+        reset_counters()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         start.record()
@@ -3288,7 +3285,7 @@ def phase_maniskill(card: str) -> dict:
                        env_cfg={k: v for k, v in eval_env.items() if k not in ("type", "env_name")})
         try:
             check_maniskill_env(ev.env, "evaluator")
-            pf.reset_launch_counts()
+            reset_counters()
             t_ev = time.monotonic()
             result = ev.run(level_list=MANISKILL_LEVELS, max_steps=ManiSkillRawStandIn.HORIZON)
             torch.cuda.synchronize()
@@ -3454,7 +3451,7 @@ def pipeline_run(pf, lag: int, work: str, card: str, fused: bool = False) -> dic
     rollout.forward_with_policy = timed_collect
     total = warm + (PIPE_CYCLES + PIPE_PROFILED_CYCLES) * n_steps
     try:
-        pf.reset_launch_counts()
+        reset_counters()
         out = train_rl(agent, rollout, None, replay, work_dir=work, total_steps=total, warm_steps=warm,
                        n_steps=n_steps, n_updates=n_updates, n_log=PIPE_LOG_EVERY, n_eval=-1, n_checkpoint=-1,
                        stall_timeout=train_cfg["stall_timeout"], act_fused_updates=fused)
@@ -3818,7 +3815,7 @@ def phase_graphs(pf, card: str) -> dict:
     t0 = time.monotonic()
     acts = torch.profiler.ProfilerActivity
     rec: dict = {}
-    pf.reset_launch_counts()
+    reset_counters()
     rec["walker"], graphed, eager, replay = graphs_storage(pf, "walker", WALKER_CONFIG, card, acts)
     rec["act_fused"] = graphs_act_fused(pf, graphed, eager, replay, card, acts)
     del graphed, eager, replay

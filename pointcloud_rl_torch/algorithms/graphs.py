@@ -25,13 +25,11 @@ capture stream: that creates the optimizers' state and whatever the body
 makes once per device, so that nothing is uploaded from the host inside a
 capture; the second call captures it (nothing runs) and replays it; later
 calls replay.  A capture does not execute, but its Python runs: the
-agent's update counter and metric keys are put back after it, and the
-fused PointNet kernels' launch counts captured in it (the forward's, by
-entry point and by body design, and the winner backward's) and its 3D
-convolution calls (``ops/conv.call_counts``)
-are taken back and added again on every replay, which is where those
-kernels launch; ``replay_launches`` keeps what one replay of each program
-adds.  Every
+agent's update counter and metric keys are put back after it, and what
+it added to the counters of ``utils/trace.py`` (the fused PointNet
+kernels' launches, the 3D convolution calls) is taken back and added
+again on every replay, which is where those kernels launch;
+``replay_launches`` keeps what one replay of each program adds.  Every
 generator the body draws from (the agent's, its act generator, the
 replay's) is registered with the graph, so a replay draws what the eager
 step would and advances the generators as it would.  Returned tensors
@@ -90,8 +88,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops import conv, pointnet_fused
-from ..utils.trace import GRAPHS_CAPTURE, GRAPHS_EAGER, GRAPHS_REPLAY, GRAPHS_UPLOAD, span
+from ..utils.trace import GRAPHS_CAPTURE, GRAPHS_EAGER, GRAPHS_REPLAY, GRAPHS_UPLOAD, add_counts, counts, span
 from ..utils.tree_ops import tree_map
 
 
@@ -115,19 +112,11 @@ class _Program:
         self.replays = 0
 
 
-# The launch counters a capture takes back and a replay adds again.
-_LAUNCH_COUNTERS = (pointnet_fused.launch_counts, pointnet_fused.bwd_launch_counts, pointnet_fused.plan_counts,
-                    conv.call_counts)
-
-# What one replay of each program captured in this process adds to the launch
+# What one replay of each program captured in this process adds to the
 # counters, by the repr of the program's key (the latest capture of a key).  It
 # outlives the programs and their agent, so that a trace of replays can be held
 # to it after the fact (``UpdatePrograms.stats`` gives the same per program).
 replay_launches: Dict[str, Dict[str, int]] = {}
-
-
-def _counter(name: str) -> Dict[str, int]:
-    return next(c for c in _LAUNCH_COUNTERS if name in c)
 
 
 class UpdatePrograms:
@@ -162,7 +151,7 @@ class UpdatePrograms:
 
     def stats(self) -> Dict[str, Any]:
         """The eager first runs, captures and invalidations so far, and per
-        program: capture ms, replays, kernels it adds to the launch counts,
+        program: capture ms, replays, what it adds to the counters,
         bytes its capture added to the pool."""
         return {"eager_runs": self.eager_runs, "captures": self.captures, "invalidations": self.invalidations,
                 "programs": {repr(k): {"capture_ms": p.capture_ms, "replays": p.replays, "launches": p.launches,
@@ -202,8 +191,7 @@ class UpdatePrograms:
             prog.graph.replay()
             prog.replays += 1
             self.agent.updates += n
-            for name, count in prog.launches.items():
-                _counter(name)[name] += count
+            add_counts(prog.launches)
             return tuple(o.clone() for o in prog.outputs)
 
     def _capture(self, key: Tuple, body: Callable, inputs, generators: Sequence) -> _Program:
@@ -222,7 +210,7 @@ class UpdatePrograms:
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         updates, metric_keys = agent.updates, agent._metric_keys
-        counts = [dict(c) for c in _LAUNCH_COUNTERS]
+        before = counts()
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()  # as the capture does first: the pool's growth is what it reserves anew
         reserved = torch.cuda.memory_reserved(self.device)
@@ -233,12 +221,10 @@ class UpdatePrograms:
         except Exception as err:
             raise RuntimeError(f"capturing the update program {key} as a CUDA graph failed: {err}") from err
         finally:
-            captured = {k: v - before[k] for c, before in zip(_LAUNCH_COUNTERS, counts) for k, v in c.items()}
-            for c, before in zip(_LAUNCH_COUNTERS, counts):
-                c.update(before)
+            captured = {k: d for k, v in counts().items() if (d := v - before.get(k, 0))}
+            add_counts({k: -v for k, v in captured.items()})
             agent.updates, agent._metric_keys = updates, metric_keys
         torch.cuda.synchronize(self.device)
         capture_ms = 1e3 * (time.perf_counter() - t0)
         pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        return _Program(graph, statics, outputs, {k: v for k, v in captured.items() if v},
-                        capture_ms, pool_bytes)
+        return _Program(graph, statics, outputs, captured, capture_ms, pool_bytes)

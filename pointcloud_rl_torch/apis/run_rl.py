@@ -43,8 +43,9 @@ writes ``run_summary.json`` into the work dir: the device, step counts,
 throughput over the main loop, the replay (type, device, bytes of storage;
 ``replay_restored``: the transitions a resume restored from the
 ``train_cfg.save_replay`` snapshot ``models/replay_latest.h5``),
-the fused-PointNet kernel launches of the process (``launches``, and
-``plans``: the forward launches by body design), the update programs'
+one entry per counter of ``utils/trace.py`` (``launches`` and
+``bwd_launches``: the fused PointNet kernels' launches; ``conv_calls``: the
+3D convolution calls), the update programs'
 counters (``programs``: eager first runs, captures, invalidations, and
 each program's replays; ``algorithms/graphs.py``), evaluation results, and
 the ``pointcloud_rl_tpu`` and ``jax`` modules loaded in the process
@@ -68,6 +69,7 @@ from ..config import Config, DictAction
 from ..utils.checkpoint import find_checkpoint, load_checkpoint
 from ..utils.logger import get_logger
 from ..utils.seeding import add_env_vars, set_host_seed
+from ..utils.trace import COUNTERS, reset_counters
 from .train_rl import train_rl
 
 _TRAIN_KEYS = ("total_steps", "warm_steps", "n_steps", "n_updates", "n_log", "n_eval",
@@ -379,7 +381,6 @@ def run(cfg: Config, work_dir: str, seed: int, args, world: int = 1) -> dict:
         import torch
 
         from ..algorithms import build_agent
-        from ..ops import pointnet_fused
 
         if args.debug:
             torch.autograd.set_detect_anomaly(True)
@@ -424,7 +425,7 @@ def run(cfg: Config, work_dir: str, seed: int, args, world: int = 1) -> dict:
 
         summary = {"device": str(device), "device_name": device_name, "resume_steps": resume_steps,
                    "world_size": world, "replay_restored": restored}
-        pointnet_fused.reset_launch_counts()
+        reset_counters()
         if args.evaluation:
             assert evaluator is not None, "--evaluation requires eval_cfg"
             agent.eval()
@@ -449,9 +450,7 @@ def run(cfg: Config, work_dir: str, seed: int, args, world: int = 1) -> dict:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         summary["replay"] = replay_summary(replay)
-        summary["launches"] = dict(pointnet_fused.launch_counts)
-        summary["bwd_launches"] = dict(pointnet_fused.bwd_launch_counts)
-        summary["plans"] = dict(pointnet_fused.plan_counts)
+        summary.update((name, dict(c)) for name, c in COUNTERS.items())
         programs = getattr(agent, "_programs", None)  # none where the updates run eagerly
         summary["programs"] = programs.stats() if programs is not None else None
         summary["pointcloud_rl_tpu_modules"] = sorted(

@@ -42,10 +42,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..utils.trace import counter
 from . import build
 
 _LN_EPS = 1e-6
@@ -54,24 +55,11 @@ _LIB_NAME = "pointnet_fused"
 
 # Kernel launches per entry point in this process.  Each wrapper adds one
 # where it launches its kernel and nowhere else.
-launch_counts: Dict[str, int] = {"pointnet_fused_fwd_idx": 0, "pointnet_fused_fwd_max": 0}
-
+launch_counts = counter("launches", ("pointnet_fused_fwd_idx", "pointnet_fused_fwd_max"))
 
 # The backward kernel's launches, apart: readers of ``launch_counts`` hold
 # its total to the forward launches they find in a trace.
-bwd_launch_counts: Dict[str, int] = {"pointnet_fused_bwd": 0}
-
-# The forward launches again, by the body design they ran: the bf16
-# persistent body, the chunked body in bf16 (widths whose weights do not
-# fit the persistent one) and the f32 3xTF32 body.  Apart from
-# ``launch_counts``, whose total its readers hold to the launches in a trace.
-plan_counts: Dict[str, int] = {"bf16_persistent": 0, "bf16_chunked": 0, "f32_3xtf32": 0}
-
-
-def reset_launch_counts() -> None:
-    for counts in (launch_counts, bwd_launch_counts, plan_counts):
-        for key in counts:
-            counts[key] = 0
+bwd_launch_counts = counter("bwd_launches", ("pointnet_fused_bwd",))
 
 
 # ------------------------------------------------------------ plain version
@@ -258,10 +246,8 @@ def _forward_kernel(x, params, compute_dtype, with_idx: bool):
                          "(the kernel takes widths 1..256 whose tiles fit in shared memory)")
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     if lib.pointnet_fused_persistent(bf16, c_in, c1, c2, c3):
-        plan = "bf16_persistent"
         chunks, per = choose_runs(B, N, tile_rows, _sm_count(index))
     else:
-        plan = "bf16_chunked" if bf16 else "f32_3xtf32"
         chunks, per = choose_chunks(B, N, tile_rows, _sm_count(index)), 0
     scratch = torch.empty(lib.pointnet_fused_scratch_bytes(bf16, c_in, c1, c2, c3, B, N, chunks, per),
                           device=dev, dtype=torch.uint8)
@@ -283,7 +269,6 @@ def _forward_kernel(x, params, compute_dtype, with_idx: bool):
         msg = lib.pointnet_fused_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: {msg} (cudaError {err})")
     launch_counts[name] += 1
-    plan_counts[plan] += 1
     return pooled, idx
 
 

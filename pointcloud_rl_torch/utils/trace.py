@@ -14,7 +14,7 @@ innermost span open over it.
 The spans of ``TIMED`` also add their host seconds to ``seconds``, with or
 without a session: the rollout's log keys read them (``env/rollout.py``).
 ``seconds`` only grows; a reader takes the difference of two reads, as
-with ``ops/pointnet_fused.launch_counts``.
+with the counters.
 
 The names are the constants below, and ``NAMES`` holds every one.  No span
 opens inside the body of a captured update program (it would run only at
@@ -22,6 +22,14 @@ the program's eager run and its capture, never at a replay).
 
 ``StreamClock`` times the work enqueued inside its blocks: on a card with
 CUDA events on the current stream (``train_rl``'s ``update_time``).
+
+The counters live here too.  A module that counts what it launches
+registers a dict of zeros with ``counter(name, keys)`` and adds to it in
+place; ``COUNTERS`` holds every one by its name, which is its key in
+``run_summary.json``.  A captured update program (``algorithms/graphs.py``)
+takes back what its capture counted and adds it again on every replay, by
+key (``counts``, ``add_counts``), so no key is in two counters.  A reader
+takes the difference of two reads; ``reset_counters`` zeroes them in place.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ from __future__ import annotations
 import functools
 import sys
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 TRAIN_CYCLE = "train.cycle"  # one turn of train_rl's loop; its args are the cycle's index
 TRAIN_UPDATES = "train.updates"  # one update dispatch of train_rl
@@ -159,3 +167,39 @@ class StreamClock:
         self._pairs.clear()
         self._host = 0.0
         return total
+
+
+# the registered counters by name, each a dict of counts by key
+COUNTERS: Dict[str, Dict[str, int]] = {}
+
+
+def counter(name: str, keys: Sequence[str]) -> Dict[str, int]:
+    """Register the counter ``name`` and return its dict of zeros by ``keys``.
+
+    Refuses a name already registered, and a key that another counter
+    holds: a replay adds each count back by its key alone."""
+    if name in COUNTERS:
+        raise ValueError(f"the counter {name!r} is registered already")
+    held = sorted(set(keys) & set(counts()))
+    if held:
+        raise ValueError(f"the counter {name!r}: another counter holds the keys {held}")
+    COUNTERS[name] = dict.fromkeys(keys, 0)
+    return COUNTERS[name]
+
+
+def counts() -> Dict[str, int]:
+    """Every registered count by its key, in one dict (a copy)."""
+    return {key: n for c in COUNTERS.values() for key, n in c.items()}
+
+
+def add_counts(added: Dict[str, int]) -> None:
+    """Add ``added`` to the registered counts by key (a negative count takes back)."""
+    for key, n in added.items():
+        next(c for c in COUNTERS.values() if key in c)[key] += n
+
+
+def reset_counters() -> None:
+    """Zero every registered count, in place: readers hold the dicts."""
+    for c in COUNTERS.values():
+        for key in c:
+            c[key] = 0

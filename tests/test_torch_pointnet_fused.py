@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from pointcloud_rl_torch.ops import pointnet_fused as tpf
+from pointcloud_rl_torch.utils import trace
 
 torch.set_num_threads(1)
 
@@ -146,28 +147,11 @@ def test_dispatch_takes_the_max_only_path_without_autograd(monkeypatch):
 
 
 def test_cpu_tensors_never_launch_the_kernel():
-    tpf.reset_launch_counts()
+    trace.reset_counters()
     x, params = _inputs(4, 2, 40, 9)
     _torch_forward(x, params, None)
     _torch_forward(x, params, None, with_idx=False)
     assert tpf.launch_counts == {"pointnet_fused_fwd_idx": 0, "pointnet_fused_fwd_max": 0}
-    assert set(tpf.plan_counts.values()) == {0}
-
-
-def test_plan_counts_stay_apart_from_launch_counts():
-    """The forward launches by body design are a dict of their own: the
-    roofline reader sums every value of ``launch_counts``, so the designs'
-    counts must not be inside it; a capture takes them back and a replay
-    adds them like the other counters, and a reset clears them."""
-    from pointcloud_rl_torch.algorithms import graphs
-
-    assert tpf.plan_counts is not tpf.launch_counts
-    assert set(tpf.plan_counts) == {"bf16_persistent", "bf16_chunked", "f32_3xtf32"}
-    assert not set(tpf.plan_counts) & (set(tpf.launch_counts) | set(tpf.bwd_launch_counts))
-    assert any(c is tpf.plan_counts for c in graphs._LAUNCH_COUNTERS)
-    tpf.plan_counts["bf16_persistent"] += 3
-    tpf.reset_launch_counts()
-    assert set(tpf.plan_counts.values()) == {0}
 
 
 def test_library_path_changes_with_the_source(tmp_path, monkeypatch):
@@ -334,7 +318,7 @@ def test_copies_across_runs_and_rows_take_the_first_index_on_gpu():
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     ctas, per = tpf.choose_runs(B, N, 64, n_sm)
     assert 24 % per != 0 and per < 8, "runs must cross rows and split the copies"
-    pf_before = dict(tpf.plan_counts)
+    assert tpf.load_library().pointnet_fused_persistent(1, 9, *widths) == 1
     for with_idx in (True, False):
         got, idx = tpf._forward_kernel(tx, tp, torch.bfloat16, with_idx=with_idx)
         want, want_idx = tpf._forward_plain(tx, tp, torch.bfloat16, with_idx=True)
@@ -345,24 +329,23 @@ def test_copies_across_runs_and_rows_take_the_first_index_on_gpu():
             assert int(idx.max()) < 512
             assert torch.equal(idx, want_idx)
             assert not idx[:, flat].any()
-    assert tpf.plan_counts["bf16_persistent"] == pf_before["bf16_persistent"] + 2
 
 
 @pytest.mark.gpu
-def test_plan_counts_follow_the_body_design_on_gpu():
-    """bf16 at the walker's widths takes the persistent body, bf16 too wide
-    for it the chunked one, f32 the 3xTF32 body; each launch adds one to
-    its design and one to its entry point."""
-    cases = [(torch.bfloat16, (64, 128, 256), "bf16_persistent"), (None, (64, 128, 256), "f32_3xtf32"),
-             (torch.bfloat16, (256, 256, 256), "bf16_chunked")]
-    for tdt, widths, plan in cases:
+def test_the_body_design_follows_the_dtype_and_widths_on_gpu():
+    """bf16 at the walker's and the ManiSkill widths takes the persistent
+    body; f32, and bf16 too wide for it, the chunked one.  Each launch adds
+    one to its entry point, whatever the design."""
+    cases = [(torch.bfloat16, (64, 128, 256), 1), (torch.bfloat16, (128, 128, 256), 1),
+             (None, (64, 128, 256), 0), (torch.bfloat16, (256, 256, 256), 0)]
+    for tdt, widths, persistent in cases:
         tx, tp = _gpu_inputs(14, 4, 300, 9, widths)
-        before, launches = dict(tpf.plan_counts), sum(tpf.launch_counts.values())
+        assert tpf.load_library().pointnet_fused_persistent(int(tdt is not None), 9, *widths) == persistent
+        before = dict(tpf.launch_counts)
         tpf._forward_kernel(tx, tp, tdt, with_idx=True)
         tpf._forward_kernel(tx, tp, tdt, with_idx=False)
-        added = {k: v - before[k] for k, v in tpf.plan_counts.items()}
-        assert added == {k: 2 if k == plan else 0 for k in added}, (plan, added)
-        assert sum(tpf.launch_counts.values()) == launches + 2
+        added = {k: v - before[k] for k, v in tpf.launch_counts.items()}
+        assert added == {"pointnet_fused_fwd_idx": 1, "pointnet_fused_fwd_max": 1}, (tdt, widths, added)
 
 
 @pytest.mark.gpu
@@ -394,7 +377,7 @@ def test_launch_counts_keep_the_forward_keys_alone():
 def test_cpu_backward_is_the_plain_one_and_never_launches():
     """CPU tensors run ``_winner_backward`` unchanged: autograd's gradients
     are its output, and the backward kernel's counter stays at 0."""
-    tpf.reset_launch_counts()
+    trace.reset_counters()
     x, params = _inputs(7, 3, 60, 9)
     leaves = [torch.from_numpy(a).requires_grad_(True) for a in [x] + params]
     out = tpf.fused_pointnet_body(leaves[0], tuple(leaves[1:]))

@@ -34,7 +34,7 @@ RNN_CONFIG = osp.join(REPO, "configs/mfrl/sac/dm_control/pn_rnn.py")
 DMC_CONFIG = osp.join(REPO, "configs/mfrl/sac/dm_control/pn.py")
 WALKER_CONFIG = osp.join(REPO, "configs/mfrl/sac/dm_control/pn_walker_tpu.py")
 PORT_SOURCES = sorted(glob.glob(osp.join(REPO, "pointcloud_rl_torch", "**", "*.py"), recursive=True)
-                      + [osp.join(REPO, "chip_smoke.py"), osp.join(REPO, "tools", "profile_torch_slice.py"),
+                      + [osp.join(REPO, "chip_smoke.py"),
                    osp.join(REPO, "tools", "vn_f32_gap.py"), osp.join(REPO, "tools", "replay_snapshot_cost.py"),
                    osp.join(REPO, "tests", "_torch_dp_worker.py"),
                    osp.join(REPO, "tests", "_torch_multihost_worker.py")])
@@ -58,6 +58,30 @@ def test_no_port_source_imports_the_jax_package():
     bad = [(osp.relpath(p, REPO), m) for p in PORT_SOURCES for m in _imported_modules(p)
            if m.split(".")[0] == "pointcloud_rl_tpu"]
     assert not bad, bad
+
+
+def _absolute_imports(rel):
+    """The modules (and the names of ``from`` imports) a package file imports, as absolute names."""
+    package = ["pointcloud_rl_torch"] + rel.split("/")[:-1]
+    tree = ast.parse(open(osp.join(REPO, "pointcloud_rl_torch", rel)).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            module = ".".join(package[:len(package) + 1 - node.level] if node.level else [])
+            module = ".".join(m for m in (module, node.module) if m)
+            yield module
+            yield from (f"{module}.{alias.name}" for alias in node.names)
+
+
+def test_the_update_programs_and_the_cli_import_no_kernel_module():
+    """``algorithms/graphs.py`` and ``apis/run_rl.py`` reach the kernels'
+    counters through ``utils/trace.py``: neither imports a module of ``ops``."""
+    for rel in ("algorithms/graphs.py", "apis/run_rl.py"):
+        found = set(_absolute_imports(rel))
+        assert "pointcloud_rl_torch.utils.trace" in found, rel
+        bad = sorted(m for m in found if m.split(".")[:2] == ["pointcloud_rl_torch", "ops"])
+        assert not bad, (rel, bad)
 
 
 def test_parallel_has_the_jax_packages_names():

@@ -7,6 +7,8 @@ slice with a host replay (plain and pipelined collection) put every span
 of the loop into the exported Chrome trace, each inside its parent.
 (c) Every ``span(...)`` site of the package names a declared span, and
 every declared span has a site.
+(d) The counters' registry refuses a second counter of a name, and a key
+that another counter holds.
 """
 
 import ast
@@ -133,6 +135,23 @@ def test_stream_clock_off_the_card_sums_host_seconds():
             time.sleep(0.002)
     assert clock.take() >= 0.004
     assert clock.take() == 0.0
+
+
+def test_a_counter_refuses_a_taken_name_and_a_held_key(monkeypatch):
+    monkeypatch.setattr(trace, "COUNTERS", {})
+    a = trace.counter("a", ("x", "y"))
+    assert a == {"x": 0, "y": 0} and trace.COUNTERS == {"a": a}
+    with pytest.raises(ValueError, match="registered already"):
+        trace.counter("a", ("z",))
+    with pytest.raises(ValueError, match=r"holds the keys \['y'\]"):
+        trace.counter("b", ("z", "y"))
+    assert trace.COUNTERS == {"a": a}
+    b = trace.counter("b", ("z",))
+    trace.add_counts({"x": 2, "z": 3})
+    trace.add_counts({"x": -1})
+    assert trace.counts() == {"x": 1, "y": 0, "z": 3} and a["x"] == 1 and b["z"] == 3
+    trace.reset_counters()
+    assert trace.COUNTERS == {"a": a, "b": b} and trace.counts() == {"x": 0, "y": 0, "z": 0}
 
 
 # -------------------------------------------------- (b) under a session

@@ -611,39 +611,47 @@ def test_a_walker_shaped_update_replays_its_backward_launches_on_gpu():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("bf16, plan", [(True, "bf16_persistent"), (False, "f32_3xtf32")], ids=["bf16", "f32"])
-def test_a_walker_shaped_update_counts_its_body_design_on_gpu(bf16, plan):
-    """DrQ scans at the walker's body widths: every forward launch of the
-    eager run, the capture's replay and a later replay adds one to its
-    body design in ``plan_counts`` (bf16: the persistent body; f32: the
-    3xTF32 body), as many as it adds to ``launch_counts``."""
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+def test_a_walker_shaped_update_replays_its_forward_launches_on_gpu(bf16):
+    """DrQ scans at the walker's body widths: the eager run, the capture's
+    replay and a later replay each add the same forward launches to
+    ``launch_counts``, which the program says one replay adds."""
     from pointcloud_rl_torch.ops import pointnet_fused as pf
 
     _card()
     graphed, _, mem, _ = _card_agents("drq", bf16, extra={_V + "mlp_spec": [64, 128, 256]})
-    for rnd in range(3):  # the eager run, the capture and a replay, a replay
-        plans, launches = dict(pf.plan_counts), dict(pf.launch_counts)
+    added = []
+    for _ in range(3):  # the eager run, the capture and a replay, a replay
+        before = dict(pf.launch_counts)
         graphed.update_parameters_scan(mem, 4)
-        added = {k: v - plans[k] for k, v in pf.plan_counts.items()}
-        n = sum(v - launches[k] for k, v in pf.launch_counts.items())
-        assert n > 0 and added == {k: n if k == plan else 0 for k in added}, (rnd, added, n)
+        added.append({k: v - before[k] for k, v in pf.launch_counts.items()})
+    assert sum(added[0].values()) > 0 and added == [added[0]] * 3, added
+    (prog,) = graphed._programs.stats()["programs"].values()
+    assert {k: prog["launches"].get(k, 0) for k in added[0]} == added[0]
 
 
 def test_the_launch_counters_hold_the_conv_calls():
-    """The 3D convolution calls are among the counters a capture takes back
-    and a replay adds again, beside the fused PointNet kernels' launches,
-    and no name is in two counters (a replay adds each count by its name)."""
-    from pointcloud_rl_torch.algorithms import graphs
+    """The counters of ``utils/trace.py``, which a capture takes back and a
+    replay adds again: the fused PointNet kernels' launches and the 3D
+    convolution calls, under their ``run_summary.json`` names, each the ops
+    module's own dict.  No key is in two counters (a replay adds each count
+    by its key), and a reset zeroes every one in place."""
     from pointcloud_rl_torch.ops import conv
     from pointcloud_rl_torch.ops import pointnet_fused as pf
+    from pointcloud_rl_torch.utils import trace
 
-    counters = graphs._LAUNCH_COUNTERS
-    assert any(c is conv.call_counts for c in counters)
-    assert any(c is pf.bwd_launch_counts for c in counters) and any(c is pf.launch_counts for c in counters)
+    assert set(trace.COUNTERS) == {"launches", "bwd_launches", "conv_calls"}
+    assert pf.launch_counts is trace.COUNTERS["launches"]
+    assert pf.bwd_launch_counts is trace.COUNTERS["bwd_launches"]
+    assert conv.call_counts is trace.COUNTERS["conv_calls"]
     assert set(conv.call_counts) == {"conv3d_fwd", "conv3d_dgrad", "conv3d_wgrad"}
-    names = [k for c in counters for k in c]
-    assert len(names) == len(set(names))
-    assert all(graphs._counter(k) is conv.call_counts for k in conv.call_counts)
+    keys = [k for c in trace.COUNTERS.values() for k in c]
+    assert len(keys) == len(set(keys))
+    trace.add_counts(dict.fromkeys(keys, 1))
+    held = dict(trace.COUNTERS)
+    trace.reset_counters()
+    assert all(trace.COUNTERS[name] is c for name, c in held.items())
+    assert trace.counts() == dict.fromkeys(keys, 0)
 
 
 @pytest.mark.gpu
