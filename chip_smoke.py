@@ -4,7 +4,7 @@
     python3 chip_smoke.py               # all phases, one card
     python3 chip_smoke.py --kernels-only
     python3 chip_smoke.py --only dmc    # the kernel phase, then only the named phases
-                                        # (graphs, runs, encoders, modules, dmc, dp, hosts, hosts-nccl,
+                                        # (graphs, runs, encoders, conv, modules, dmc, dp, hosts, hosts-nccl,
                                         # replay-io, maniskill, pipeline);
                                         # no result line
     python3 chip_smoke.py --only dp,hosts-nccl --dp-nccl-ranks 4   # on a host of 4 cards
@@ -89,7 +89,10 @@ Phases (any failure exits non-zero and prints no result):
    or evaluates; it writes them to ``run_summary.json``.  The PointNet runs
    must have launched both kernels in training (and the max-only one in
    evaluation); the voxel run, which has no PointNet, must have launched
-   neither.  Each run also lists there the
+   neither.  Every 3D convolution must have run on the conv3d kernels: in
+   the voxel run each kind's launches (``conv3d_launches``) equal its calls
+   (``conv_calls``) and are above 0 (in evaluation the forward's alone);
+   in the PointNet runs both are 0.  Each run also lists there the
    ``pointcloud_rl_tpu`` modules it loaded, which must be none, and its
    replay (``drq_device``: a ``DeviceReplayMemory`` on ``cuda`` with its
    bytes).  The loss of each run must be logged and finite.
@@ -110,8 +113,24 @@ Phases (any failure exits non-zero and prints no result):
    ``VN_TOL``); ms per forward and
    per forward + backward (CUDA events) beside the FLOP count
    (``pointcloud_rl_torch/utils/flops.py`` on ``torch.utils.flop_counter``:
-   the products, matmuls and convolutions)
-   and the least time the card could take in f32 and in TF32.
+   the products, matmuls and convolutions; the dense voxel CNN's 3D
+   convolutions run the port's kernels through ctypes, which the counter
+   cannot see, so each of their calls is counted from its shapes,
+   ``card_flops``) and the least time the card could take in f32 and in
+   TF32.
+6b. The voxel encoder's 3D convolutions (``conv``): the port's kernels of
+   ``csrc/conv3d.cu`` (``ops/conv.py``) at the ``drq_voxel`` cell's three
+   shapes (512 clouds; 32^3 x 32 -> 16^3 x 64 -> 8^3 x 64 -> 4^3 x 128, k 4,
+   s 2), each kind (fprop, dgrad, wgrad with the bias) against the f64
+   plain version on the card: the gap (largest error over the largest f64
+   value) within the tests' tolerance (``tests/test_torch_conv3d.py``: n u,
+   n the longest sum into one output, and at most twice cuDNN's own f32
+   gap); whether the forward has cuDNN's f32 bits (reported, not held:
+   another cuDNN may sum in another order); ms per call (CUDA events)
+   beside the least time at the 67 TFLOP/s f32 FMA peak (or the bytes at
+   HBM's rate), and cuDNN's ms for the same call as ``library_ms`` (the
+   yardstick only: the port never calls it).  ``cuobjdump -sass`` of the
+   library: no ``HMMA``/``HGMMA`` and no float ``RED``/``ATOM``.
 7. The modules of the recurrent and DDPG slices, each built once, the same
    state dict on the card and on the CPU: the GRU's forward and backward at
    the recurrent update's ``[64, 9, 160]`` (and its ms per call), one
@@ -267,10 +286,12 @@ Phases (any failure exits non-zero and prints no result):
    inside the act's program).  Env steps/s, updates/s and
    the device's idle share (``torch.profiler`` over the 2 cycles against
    the timed cycles' wall).
-15. One JSON line describing the encoders, one describing the modules, one
+15. One JSON line describing the encoders, one the convolutions, one describing the modules, one
    each for the graphs phase, the DMC modules, the DMC run, the dp, hosts,
    replay-io, maniskill and pipeline phases, the script's total time, one line
-   describing the kernels, the card's name and power limit, then the
+   describing the kernels (the two TPU kernels' entry points, the winner
+   backward and the three conv3d kernels, each with its launches by run,
+   ms, bound and library ms), the card's name and power limit, then the
    result line ``{"ok": true, "device": {...}}``.
 
 Every time printed here was measured in this run, on the card named in
@@ -336,6 +357,17 @@ BWD_KERNEL = "pointnet_fused_bwd"
 BWD_REPLACES = "pointcloud_rl_tpu/ops/pointnet_fused.py:228"
 # What a PointNet training run launches: both forward entries and the backward.
 TRAIN_KERNELS = [*TPU_KERNELS, BWD_KERNEL]
+# The voxel encoder's 3D convolutions: XLA's convolutions in the JAX package,
+# hand-written f32 FFMA kernels here, one launch a call: kernel -> (its key of
+# ``conv3d_launches``, the key of ``conv_calls`` it must equal).
+CONV_SOURCE = "pointcloud_rl_torch/csrc/conv3d.cu"
+CONV_REPLACES = "pointcloud_rl_tpu/models/voxel.py:72"
+CONV_KERNELS = {
+    "conv3d_fprop_kernel": ("conv3d_fprop_launches", "conv3d_fwd"),
+    "conv3d_dgrad_kernel": ("conv3d_dgrad_launches", "conv3d_dgrad"),
+    "conv3d_wgrad_kernel": ("conv3d_wgrad_launches", "conv3d_wgrad"),
+}
+CONV_BOUND_FORMULA = "max(ops, bytes): ops = FLOP/67e12 s (f32 FFMA), FLOP = 2 * output sites * C_out * C_in * 64"
 # (name, B, N, C_in, widths, compute dtype name): the main path's shapes,
 # timed (SAC's and DDPG's update encodes at B=256, a data-parallel rank's
 # 128 of them at 2 ranks and 64 at 4, DrQ's at 2 x 256 rows
@@ -778,8 +810,19 @@ def launched(pf) -> dict:
 
 
 def run_launches(summary: dict) -> dict:
-    """A ``run_summary.json``'s launches, the winner backward's with them."""
-    return {**summary["launches"], **summary["bwd_launches"]}
+    """A ``run_summary.json``'s launches, the winner backward's and the conv kernels' with them."""
+    return {**summary["launches"], **summary["bwd_launches"], **summary["conv3d_launches"]}
+
+
+def check_conv_launches(name: str, stage: str, summary: dict, kinds) -> None:
+    """Every 3D convolution of the run went through the port's kernels: each
+    kind's launches (``conv3d_launches``) equal its calls (``conv_calls``),
+    above 0 for the kernels in ``kinds`` and 0 for the others."""
+    for kname, (launch_key, call_key) in CONV_KERNELS.items():
+        n, calls = summary["conv3d_launches"][launch_key], summary["conv_calls"][call_key]
+        if n != calls or (n > 0) != (kname in kinds):
+            fail(f"the {name} {stage} run launched {kname} {n} times for {calls} {call_key} calls; "
+                 f"expected {'as many, above 0' if kname in kinds else 'none'}")
 
 
 def checkpoints(total: int):
@@ -808,6 +851,8 @@ def phase_train(work: str, name: str, config: str, opts, prefix: str, pointnet: 
     if not summary["device"].startswith("cuda"):
         fail(f"{name} ran on {summary['device']}")
     check_launches(name, "training", run_launches(summary), pointnet, TRAIN_KERNELS)
+    voxel = config == VOXEL_CONFIG
+    check_conv_launches(name, "training", summary, CONV_KERNELS if voxel else ())
     for ckpt in checkpoints(total):
         if not osp.isfile(osp.join(wd, "models", ckpt)):
             fail(f"{name}: checkpoint {ckpt} missing")
@@ -824,6 +869,7 @@ def phase_train(work: str, name: str, config: str, opts, prefix: str, pointnet: 
     if not ev["eval"] or not all(math.isfinite(v) for v in ev["eval"].values()):
         fail(f"{name}: evaluation returned {ev['eval']}")
     check_launches(name, "evaluation", ev["launches"], pointnet, ["pointnet_fused_fwd_max"])
+    check_conv_launches(name, "evaluation", ev, ["conv3d_fprop_kernel"] if voxel else ())
     if ev["bwd_launches"][BWD_KERNEL] != 0:
         fail(f"{name}: the evaluation launched the winner backward {ev['bwd_launches'][BWD_KERNEL]} times")
     print(f"[{name}] eval from model_final: {ev['eval']}", flush=True)
@@ -1026,6 +1072,36 @@ def sparse_needed_flop(net, obs) -> int:
         return flop + 2 * B * c_in * net.out_channels
 
 
+def card_flops(fn, *args) -> float:
+    """``estimate_flops(fn, *args)`` on the card, with the products of the
+    port's conv3d kernels added: they run through ctypes, where
+    ``FlopCounterMode`` sees no op.  Each call counts as ``F.conv3d`` or
+    ``convolution_backward`` would: 2 x (output or dy) elements x C_in k^3."""
+    from pointcloud_rl_torch.ops import conv as tconv
+    from pointcloud_rl_torch.utils.flops import estimate_flops
+
+    tally = [0]
+    kernels = tconv._fprop, tconv._dgrad, tconv._wgrad
+
+    def fprop(x, weight, *rest):
+        out = kernels[0](x, weight, *rest)
+        tally[0] += 2 * out.numel() * weight[0].numel()
+        return out
+
+    def of_grad(kernel):
+        def call(grad, x, weight, *rest):
+            tally[0] += 2 * grad.numel() * weight[0].numel()
+            return kernel(grad, x, weight, *rest)
+        return call
+
+    tconv._fprop, tconv._dgrad, tconv._wgrad = fprop, of_grad(kernels[1]), of_grad(kernels[2])
+    try:
+        flop = estimate_flops(fn, *args)
+    finally:
+        tconv._fprop, tconv._dgrad, tconv._wgrad = kernels
+    return flop + tally[0]
+
+
 def encoder_bounds(flop: int, nbytes: int) -> dict:
     mem = nbytes / PEAK_BYTES
     return {"flop": flop, "bytes": nbytes, "bound_f32_ms": 1e3 * max(flop / PEAK_F32, mem),
@@ -1038,7 +1114,6 @@ def phase_encoders(card: str) -> list:
     import torch
 
     from pointcloud_rl_torch.models import build_all
-    from pointcloud_rl_torch.utils.flops import estimate_flops
 
     results = []
     for name, path, overrides, kind, B, (atol, rtol, grad_rtol) in ENCODERS:
@@ -1075,8 +1150,8 @@ def phase_encoders(card: str) -> list:
             fwd_ms = time_ms(lambda: net(obs), iters=10)
         step_ms = time_ms(fwd_bwd, iters=10)
         with torch.no_grad():
-            fwd_flop = estimate_flops(net, obs)
-        step_flop = estimate_flops(fwd_bwd)
+            fwd_flop = card_flops(net, obs)
+        step_flop = card_flops(fwd_bwd)
         in_bytes = sum(v.numel() * v.element_size() for v in obs.values())
         p_bytes = sum(p.numel() * 4 for p in net.parameters())
         out_bytes = B * out_dim * 4
@@ -3830,6 +3905,116 @@ def phase_graphs(pf, card: str) -> dict:
     return rec
 
 
+CONV_LAYERS = {"conv0": (32, 32, 64), "conv1": (64, 16, 64), "conv2": (64, 8, 128)}  # C_in, grid side, C_out
+CONV_CLOUDS = 512  # DrQ's 256 rows x 2 shifted copies
+U_F32 = 2.0**-24
+
+
+def conv_sass(lib_path: str) -> dict:
+    """{kernel: counts of HMMA/HGMMA and of float RED/ATOM} of the conv library."""
+    from pointcloud_rl_torch.ops import build as kbuild
+
+    cuobjdump = osp.join(osp.dirname(kbuild.find_nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            counts[fn] = {"mma": 0, "float_atomic": 0, "ffma": 0}
+        elif fn is not None:
+            counts[fn]["mma"] += "HMMA" in line or "HGMMA" in line
+            counts[fn]["float_atomic"] += ("RED" in line or "ATOM" in line) and (".F32" in line or ".FADD" in line)
+            counts[fn]["ffma"] += "FFMA" in line
+    return counts
+
+
+def phase_conv(card: str) -> dict:
+    """The voxel encoder's convolutions through the port's kernels at the
+    cell's shapes: gaps to f64, whether the forward has cuDNN's bits, ms
+    beside the bound and cuDNN's ms.  Returns {"<kind>.<layer>": {...},
+    "sass": {kernel: counts}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from pointcloud_rl_torch.ops import build as kbuild
+    from pointcloud_rl_torch.ops import conv as tconv
+
+    t0 = time.monotonic()
+    lib_path = kbuild.build_library("conv3d", verbose=True)
+    tconv.load_library()
+    print(f"[build] conv3d built and loaded in {time.monotonic() - t0:.1f} s", flush=True)
+    sass = conv_sass(str(lib_path))
+    for k, v in sorted(sass.items()):
+        print(f"[sass] {k}: {v}", flush=True)
+    if not sass or any(v["mma"] or v["float_atomic"] for v in sass.values()) or not all(v["ffma"] for v in sass.values()):
+        fail(f"the conv3d kernels must be f32 FFMA with no tensor-core or float atomic instruction: {sass}")
+    cl = torch.channels_last_3d
+    s, pad, k = 2, (1, 1, 1), 4
+    out = {}
+    for layer, (c_in, n, c_out) in CONV_LAYERS.items():
+        g = torch.Generator(device="cuda").manual_seed(7)
+        x = torch.randn(CONV_CLOUDS, c_in, n, n, n, device="cuda", generator=g).contiguous(memory_format=cl)
+        w = torch.randn(c_out, c_in, k, k, k, device="cuda", generator=g) / (c_in * k**3) ** 0.5
+        b = torch.randn(c_out, device="cuda", generator=g) * 0.1
+        m = n // 2
+        dy = torch.randn(CONV_CLOUDS, c_out, m, m, m, device="cuda", generator=g).contiguous(memory_format=cl)
+        flop = 2 * CONV_CLOUDS * m**3 * c_out * c_in * k**3
+        kernels = {
+            "fprop": lambda: tconv._fprop(x, w, b, (s,) * 3, pad),
+            "dgrad": lambda: tconv._dgrad(dy, x, w, (s,) * 3, pad),
+            "wgrad": lambda: tconv._wgrad(dy, x, w, (s,) * 3, pad, True),
+        }
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            library = {
+                "fprop": lambda: F.conv3d(x, w, b, s, pad),
+                "dgrad": lambda: torch.ops.aten.convolution_backward(
+                    dy, x, w, None, [s] * 3, list(pad), [1] * 3, False, [0] * 3, 1, [True, False, False])[0],
+                "wgrad": lambda: torch.ops.aten.convolution_backward(
+                    dy, x, w, [c_out], [s] * 3, list(pad), [1] * 3, False, [0] * 3, 1, [False, True, True])[1:],
+            }
+            x64, w64, b64, dy64 = x.double(), w.double(), b.double(), dy.double()
+            y64 = F.conv3d(x64, w64, b64, s, pad)
+            dx64, dw64, db64 = torch.ops.aten.convolution_backward(
+                dy64, x64, w64, [c_out], [s] * 3, list(pad), [1] * 3, False, [0] * 3, 1, [True, True, True])
+            exact = {"fprop": (y64,), "dgrad": (dx64,), "wgrad": (dw64, db64)}
+            plan = tconv.wgrad_plan(x, w, dy)
+            chain = {"fprop": k**3 * c_in, "dgrad": 8 * c_out, "wgrad": plan["chunk_len"] + plan["chunks"]}
+            for kind in ("fprop", "dgrad", "wgrad"):
+                got, lib_got = kernels[kind](), library[kind]()
+                got = got if isinstance(got, tuple) else (got,)
+                lib_got = lib_got if isinstance(lib_got, tuple) else (lib_got,)
+                gaps, yards = [], []
+                for a, c, e in zip(got, lib_got, exact[kind]):
+                    scale = e.abs().max().clamp_min(1e-300)
+                    gaps.append(float((a.double() - e).abs().max() / scale))
+                    yards.append(float((c.double() - e).abs().max() / scale))
+                rec = {"gap": max(gaps), "library_gap": max(yards), "tolerance": chain[kind] * U_F32}
+                for gap, yard in zip(gaps, yards):
+                    if not gap <= chain[kind] * U_F32 or not gap <= 2 * yard + 2 * U_F32:
+                        fail(f"conv3d {kind} {layer}: gap {gap:.3e} past n u = {chain[kind] * U_F32:.3e} "
+                             f"or twice cuDNN's {yard:.3e}")
+                if kind == "fprop":  # reported: the kernels are held to f64 and cuDNN's gap, not its bits
+                    rec["bitwise_library"] = bool(torch.equal(got[0], lib_got[0].contiguous(memory_format=cl)))
+                again = kernels[kind]()
+                again = again if isinstance(again, tuple) else (again,)
+                if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                    fail(f"conv3d {kind} {layer}: two calls differ")
+                ms, lib_ms = time_ms(kernels[kind], iters=10), time_ms(library[kind], iters=10)
+                nbytes = 4 * (x.numel() + w.numel() + dy.numel())
+                bound = 1e3 * max(flop / PEAK_F32, nbytes / PEAK_BYTES)
+                rec.update(ms=ms, bound_ms=bound, bound_by="ops" if flop / PEAK_F32 >= nbytes / PEAK_BYTES else "bytes", share_of_bound=bound / ms, library_ms=lib_ms,
+                           tflop_s=flop / ms / 1e9, gflop=flop / 1e9)
+                out[f"{kind}.{layer}"] = rec
+                print(f"[conv] {kind} {layer}: {ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s), bound {bound:.3f} ms "
+                      f"({bound / ms:.1%}), cuDNN {lib_ms:.3f} ms; gap {rec['gap']:.2e} (cuDNN {rec['library_gap']:.2e})"
+                      f" on {card}", flush=True)
+        del x, w, b, dy, x64, w64, b64, dy64, y64, dx64, dw64, db64, exact
+        torch.cuda.empty_cache()
+    out["sass"] = sass
+    return out
+
+
 def main() -> int:
     t_start = time.monotonic()
     if not osp.isdir(osp.join(REPO, "pointcloud_rl_torch")):
@@ -3849,7 +4034,7 @@ def main() -> int:
             worker(argv[at + 1], argv[at + 2])
             return 0
     kernels_only = "--kernels-only" in argv
-    # --only PHASE[,PHASE]: graphs, runs, encoders, modules, dmc, dp, hosts, hosts-nccl, replay-io,
+    # --only PHASE[,PHASE]: graphs, runs, encoders, conv, modules, dmc, dp, hosts, hosts-nccl, replay-io,
     # maniskill, pipeline (the kernel phase always runs)
     only = set(argv[argv.index("--only") + 1].split(",")) if "--only" in argv else None
 
@@ -3922,12 +4107,17 @@ def main() -> int:
                   f"{summary['updates_per_s']:.1f} updates/s over the main loop "
                   f"({summary['main_loop_s']:.1f} s){idle} on {card}", flush=True)
         print(json.dumps({"runs": {name: {k: summary.get(k) for k in (
-            "env_steps_per_s", "updates_per_s", "main_loop_s", "launches", "bwd_launches",
-            "device_busy_ms_per_env_step", "device_idle_share")} for name, summary in summaries.items()}}), flush=True)
+            "env_steps_per_s", "updates_per_s", "main_loop_s", "launches", "bwd_launches", "conv_calls",
+            "conv3d_launches", "device_busy_ms_per_env_step", "device_idle_share")} for name, summary in summaries.items()}}), flush=True)
         print(f"[time] through the training runs: {time.monotonic() - t0:.1f} s", flush=True)
     if wanted("encoders"):
         phase_encoders(card)
         print(f"[time] through the encoder phase: {time.monotonic() - t0:.1f} s", flush=True)
+    conv = None
+    if wanted("conv"):
+        conv = phase_conv(card)
+        print(json.dumps({"conv": conv}), flush=True)
+        print(f"[time] through the conv phase: {time.monotonic() - t0:.1f} s", flush=True)
     if wanted("modules"):
         phase_modules(card)
         print(f"[time] through the module phase: {time.monotonic() - t0:.1f} s", flush=True)
@@ -4012,6 +4202,24 @@ def main() -> int:
         **{f"{shape}_{key}": shp[shape][key] for shape in BWD_SHAPES[1:] for key in ("ms", "plain_ms", "bound_ms")},
         "hgmma": hgmma[BWD_KERNEL],
     })
+    for kname, (launch_key, _) in CONV_KERNELS.items():
+        conv_runs = {name: run[launch_key] for name, run in by_run.items() if launch_key in run}
+        calls = {layer: conv[f"{kname.split('_')[1]}.{layer}"] for layer in CONV_LAYERS} if conv else {}
+        kernels.append({
+            "name": kname, "route": "cuda", "source": CONV_SOURCE, "replaces": CONV_REPLACES,
+            "launches": sum(conv_runs.values()) if conv_runs else None,
+            "max_gap": max(c["gap"] for c in calls.values()) if calls else None,
+            # one call at each of the cell's three layers, 512 clouds
+            **{key: sum(c[key] for c in calls.values()) if calls else None
+               for key in ("ms", "bound_ms", "library_ms")},
+            "bound_by": ",".join(sorted({c["bound_by"] for c in calls.values()})) if calls else None,
+            "bound_formula": CONV_BOUND_FORMULA,
+            "share_of_bound": sum(c["bound_ms"] for c in calls.values()) / sum(c["ms"] for c in calls.values())
+            if calls else None,
+            "launches_by_run": conv_runs,
+            **{f"{layer}_{key}": c[key] for layer, c in calls.items() for key in ("ms", "bound_ms", "library_ms")},
+            "hgmma": sum(v["mma"] for k, v in conv["sass"].items() if kname in k) if conv else None,
+        })
     print(f"[time] total: {time.monotonic() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -45,7 +45,8 @@ throughput over the main loop, the replay (type, device, bytes of storage;
 ``train_cfg.save_replay`` snapshot ``models/replay_latest.h5``),
 one entry per counter of ``utils/trace.py`` (``launches`` and
 ``bwd_launches``: the fused PointNet kernels' launches; ``conv_calls``: the
-3D convolution calls), the update programs'
+3D convolution calls; ``conv3d_launches``: their kernels' launches on a
+card, as many), the update programs'
 counters (``programs``: eager first runs, captures, invalidations, and
 each program's replays; ``algorithms/graphs.py``), evaluation results, and
 the ``pointcloud_rl_tpu`` and ``jax`` modules loaded in the process

@@ -13,12 +13,12 @@ into ``sparse_capacity`` slots and runs the gather-based sparse conv of
 
 Layout: the grid stays channel-last ``[B, X, Y, Z, C]`` throughout, as flax
 keeps it.  Each conv reads it through a ``[B, C, X, Y, Z]`` view, whose
-strides are ``channels_last_3d``, and cuDNN writes its output in that
-format, so the LayerNorm over C and the next conv need no permute copy.
-Padding is flax's ``"SAME"``: ``ceil(n / s)`` outputs, the low side padded
-by half the total, the high side by the rest (asymmetric on odd sizes,
-where it is padded explicitly).  The convs run in f32, or in TF32 only
-where ``ops/conv.py`` says so.
+strides are ``channels_last_3d``, and ``ops/conv.py`` writes its output in
+that format (on a card its own kernels take and give that layout), so the
+LayerNorm over C and the next conv need no permute copy.  Padding is flax's
+``"SAME"``: ``ceil(n / s)`` outputs, the low side padded by half the total,
+the high side by the rest (asymmetric on odd sizes, where it is padded
+explicitly).  The convs run in f32.
 """
 
 from __future__ import annotations

@@ -632,19 +632,22 @@ def test_a_walker_shaped_update_replays_its_forward_launches_on_gpu(bf16):
 
 def test_the_launch_counters_hold_the_conv_calls():
     """The counters of ``utils/trace.py``, which a capture takes back and a
-    replay adds again: the fused PointNet kernels' launches and the 3D
-    convolution calls, under their ``run_summary.json`` names, each the ops
-    module's own dict.  No key is in two counters (a replay adds each count
-    by its key), and a reset zeroes every one in place."""
+    replay adds again: the fused PointNet kernels' launches, the 3D
+    convolution calls and the 3D convolution kernels' launches, under their
+    ``run_summary.json`` names, each the ops module's own dict.  No key is in
+    two counters (a replay adds each count by its key), and a reset zeroes
+    every one in place."""
     from pointcloud_rl_torch.ops import conv
     from pointcloud_rl_torch.ops import pointnet_fused as pf
     from pointcloud_rl_torch.utils import trace
 
-    assert set(trace.COUNTERS) == {"launches", "bwd_launches", "conv_calls"}
+    assert set(trace.COUNTERS) == {"launches", "bwd_launches", "conv_calls", "conv3d_launches"}
     assert pf.launch_counts is trace.COUNTERS["launches"]
     assert pf.bwd_launch_counts is trace.COUNTERS["bwd_launches"]
     assert conv.call_counts is trace.COUNTERS["conv_calls"]
     assert set(conv.call_counts) == {"conv3d_fwd", "conv3d_dgrad", "conv3d_wgrad"}
+    assert conv.launch_counts is trace.COUNTERS["conv3d_launches"]
+    assert set(conv.launch_counts) == {"conv3d_fprop_launches", "conv3d_dgrad_launches", "conv3d_wgrad_launches"}
     keys = [k for c in trace.COUNTERS.values() for k in c]
     assert len(keys) == len(set(keys))
     trace.add_counts(dict.fromkeys(keys, 1))
@@ -660,19 +663,22 @@ def test_a_voxel_update_replays_its_conv_calls_on_gpu():
     convolution call (two encodes of three convolutions forward, the
     critic's three input and three weight gradients per update), the
     captured program takes them back, and each replay adds them again, as
-    ``stats()`` and ``graphs.replay_launches`` say one replay does."""
+    ``stats()`` and ``graphs.replay_launches`` say one replay does.  Each
+    call is one launch of the port's kernel of its kind."""
     from pointcloud_rl_torch.algorithms import graphs
     from pointcloud_rl_torch.ops import conv
 
     _card()
     graphed, _, mem, _ = _card_agents("voxel")
-    added = []
+    added, launched = [], []
     for _ in range(3):  # the eager run, the capture and a replay, a replay
-        before = dict(conv.call_counts)
+        before, before_launches = dict(conv.call_counts), dict(conv.launch_counts)
         graphed.update_parameters_scan(mem, 2)
         added.append({k: v - before[k] for k, v in conv.call_counts.items()})
+        launched.append({k: v - before_launches[k] for k, v in conv.launch_counts.items()})
     per_update = {"conv3d_fwd": 6, "conv3d_dgrad": 3, "conv3d_wgrad": 3}
     assert added == [{k: 2 * v for k, v in per_update.items()}] * 3
+    assert launched == [{"conv3d_fprop_launches": 12, "conv3d_dgrad_launches": 6, "conv3d_wgrad_launches": 6}] * 3
     ((key, prog),) = graphed._programs.stats()["programs"].items()
     assert prog["replays"] == 2
     assert {k: prog["launches"][k] for k in per_update} == added[1]
